@@ -1,0 +1,606 @@
+#!/usr/bin/env python3
+"""Smoke run of minnow_torch's main path on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises at its first failure:
+
+1. device: the card's name and power limit (nvidia-smi);
+2. build: the CUDA kernels of minnow_torch/csrc, with nvcc for sm_90a;
+3. kernels against their plain PyTorch versions on the card, bitwise
+   (tolerance zero: words, metadata and float bit patterns must be equal):
+   K1 float encode at widths 1..30, K2 float decode at widths 0..64 in the
+   three dither modes, K3 int pack at widths 1..64 with IDs above 2^53;
+   then each at the flagship block shape (4096 blocks x 2^17 elements,
+   18 bits), timed (CUDA events, median of 7 after warm-up) beside its
+   plain version;
+4. the main path: a 1,000,000-row Rockstar-style catalog through
+   ``text_to_minh --device``, byte-compared with the file of the
+   reference's host converter, and every float column read back on the
+   card with ``read_floats`` in the none, midpoint and uniform modes,
+   bitwise equal to the host reader.  Every kernel must have been
+   launched by this phase.  Before it, each kernel is checked and timed
+   at the shapes this phase gives it.
+
+The last three lines are the nvidia-smi line, a JSON line with each
+kernel's numbers, and ``{"ok": true, "device": ...}``.  Without a CUDA
+device, or outside a checkout of the repository, it fails before printing
+any of them.  Files go to ``build/chip_smoke/`` in the checkout.
+
+The port reuses the reference package's host layers that touch no device
+(the minnow container, the minh format, text ingest); the script checks
+at the end that no jax module and none of the reference's device modules
+were imported.
+"""
+
+import json
+import os
+import shutil
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+# the reference's host converter and format modules import no jax
+from minnow_tpu.cli import text_to_minh as ref_text_to_minh  # noqa: E402
+from minnow_tpu.formats import minh  # noqa: E402
+from minnow_tpu.utils.profiling import StageTimer  # noqa: E402
+from minnow_torch.cli import text_to_minh  # noqa: E402
+from minnow_torch.formats import minh_device  # noqa: E402
+from minnow_torch.ops import _build, codec, decode, encode  # noqa: E402
+from minnow_torch.utils.device import (card_info, cuda_device,  # noqa: E402
+                                       time_ms)
+
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+FLAGSHIP = (4096, 1 << 17)     # blocks x elements: the JAX bench's shape
+CHUNK = 256                    # blocks per plain-version chunk
+ROWS = 1_000_000               # catalog rows of the main path
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def int_err(a, b):
+    """Largest |a - b| of two integer tensors (0 when bitwise equal)."""
+    if a.shape != b.shape:
+        raise AssertionError("shapes differ: %s vs %s"
+                             % (tuple(a.shape), tuple(b.shape)))
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def float_err(a, b):
+    """Largest |a - b| of two float tensors; raises unless bitwise equal."""
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        bad = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        raise AssertionError("%d elements differ; max |diff| %g"
+                             % (bad, float((a - b).abs().max())))
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+# -- phase 3: kernels against their plain versions --------------------------
+
+
+def k1_batch(rng, k, n):
+    """Eight blocks of width about k (1..30): pixels 2^30 with dx = 1, so
+    a pixel is its integer value.  Blocks: non-periodic span of exactly k
+    bits, periodic cluster, periodic wrap across the edge, periodic full
+    range, a NaN, a pixel beyond the range, a short block, an empty one."""
+    p = 1 << 30
+    q1 = (1 << k) - (1 << max(k - 24, 0))   # largest float32 below 2^k
+
+    def span(lo, hi):
+        return np.floor(rng.uniform(lo, hi, n)).astype(np.float32)
+
+    x = np.empty((8, n), np.float32)
+    x[0] = span(0, q1)
+    x[0, :2] = (0, q1)
+    half = min(q1, 1 << 27)
+    x[1] = span(1 << 29, (1 << 29) + half)
+    h = max(half // 2, 1)
+    x[2] = np.where(rng.random(n) < 0.5, span(p - h, p - 1), span(0, h))
+    x[3] = span(0, p - 1)
+    x[4] = span(0, q1)
+    x[4, n // 3] = np.nan
+    x[5] = span(0, q1)
+    x[5, 7] = np.float32(p + 4096)
+    x[6] = span(0, q1)
+    x[7] = span(0, q1)
+    periodic = np.array([0, 1, 1, 1, 1, 1, 0, 1], bool)
+    lens = np.array([n] * 6 + [n // 3, 0], np.int64)
+    return x, np.zeros(8), np.full(8, float(p)), np.full(8, p), periodic, \
+        lens
+
+
+def k1_position_batch(rng, n):
+    """The catalog's position config (L 250, epsilon 0.001): uniform,
+    clustered and edge-wrapping blocks."""
+    x = rng.uniform(0, 249.9, (4, n)).astype(np.float32)
+    x[1] = rng.uniform(100, 100.4, n)
+    x[2] = np.where(rng.random(n) < 0.5, rng.uniform(249.6, 249.99, n),
+                    rng.uniform(0, 0.3, n))
+    x[3] = rng.uniform(3.0, 3.001, n)
+    return x, np.zeros(4), np.full(4, 250.0), np.full(4, 250000), \
+        np.ones(4, bool), np.full(4, n, np.int64)
+
+
+def check_k1(dev, rng):
+    widths, err = set(), 0
+    n = 3001
+    batches = [k1_batch(rng, k, n) for k in range(1, 31)]
+    batches.append(k1_position_batch(rng, n))
+    for x, low, high, pixels, periodic, lens in batches:
+        params = codec.block_params(low, high, pixels, periodic, dev)
+        xt = torch.from_numpy(x).to(dev)
+        lt = torch.from_numpy(lens).to(dev)
+        stats = encode.float_stats(xt, params, lt)
+        ref_stats = encode.float_stats_plain(xt, params, lt)
+        err = max(err, int_err(stats, ref_stats))
+        plan = encode.plan_float(stats, params, lt)
+        words = encode.pack_float(xt, params, lt, plan)
+        ref_words = encode.pack_float_plain(xt, params, lt, plan)
+        err = max(err, int_err(words, ref_words))
+        widths.update(int(b) for b in plan.bits[plan.valid])
+    missing = set(range(1, 31)) - widths
+    if err or missing:
+        raise AssertionError("K1 sweep: max err %d, widths not seen %s"
+                             % (err, sorted(missing)))
+    log("K1 sweep: widths 1..30 at n=%d, stats and words bitwise equal to "
+        "the plain version" % n)
+    return err
+
+
+def check_k2(dev, rng):
+    err = 0.0
+    b, n = 3, 1001
+    for bits in range(65):
+        words = rng.integers(0, 1 << 32, (b, max((bits * n + 31) // 32, 1)),
+                             dtype=np.uint64).astype(np.uint32)
+        mins = rng.integers(-(1 << 40), 1 << 40, b)
+        mins[0] = 0
+        pixels = rng.integers(1, 1 << 31, b)
+        params = codec.block_params(rng.uniform(-10, 0, b),
+                                    rng.uniform(100, 300, b), pixels,
+                                    np.array([1, 1, 0], bool), dev)
+        wt = torch.from_numpy(words.view(np.int32)).to(dev)
+        mt = torch.from_numpy(mins).to(dev)
+        k1, k2 = codec.dither_keys(np.array([0, 5, 1 << 33]), 3, dev)
+        for mode in codec.DITHER_MODES:
+            got = decode.decode_float_group(wt, mt, params, bits, n, mode,
+                                            k1, k2)
+            ref = decode.decode_float_plain(wt, mt, params, bits, n, mode,
+                                            k1, k2)
+            err = max(err, float_err(got, ref))
+    log("K2 sweep: widths 0..64 x none/midpoint/uniform at n=%d, bitwise "
+        "equal to the plain version" % n)
+    return err
+
+
+def check_k3(dev, rng):
+    n = 3001
+    rows = []
+    for bits in range(1, 65):
+        lo = (1 << 53) + 12345 if bits < 62 else -(1 << (bits - 1))
+        d = rng.integers(0, (1 << 64) - 1 if bits == 64 else 1 << bits, n,
+                         dtype=np.uint64)
+        d[0], d[1] = 0, (1 << bits) - 1
+        rows.append(d.view(np.int64) + np.int64(lo))
+    x = torch.from_numpy(np.stack(rows)).to(dev)
+    lens = torch.full((64,), n, dtype=torch.int64, device=dev)
+    lens[::7] = n - 11
+    words, plan = encode.encode_int_group(x, lens)
+    if list(plan.bits) != list(range(1, 65)):
+        raise AssertionError("K3 sweep widths: %s" % list(plan.bits))
+    err = int_err(words, encode.delta_pack_int_plain(x, lens, plan))
+    if err:
+        raise AssertionError("K3 sweep: max err %d" % err)
+    log("K3 sweep: widths 1..64 at n=%d (IDs above 2^53), bitwise equal "
+        "to the plain version" % n)
+    return err
+
+
+def chunks(b):
+    return [slice(i, min(i + CHUNK, b)) for i in range(0, b, CHUNK)]
+
+
+def flagship(dev, results):
+    """Each kernel at 4096 x 2^17, 18 bits: kernel vs plain, bitwise, and
+    their times.  The plain versions run in chunks of blocks (their int64
+    temporaries would not fit at once)."""
+    b, n = FLAGSHIP
+    gb = b * n * 4 / 1e9
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.rand((b, n), generator=gen, device=dev) * 249.9
+    params = codec.block_params(np.zeros(b), np.full(b, 250.0),
+                                np.full(b, 250000), np.ones(b, bool), dev)
+    lens = torch.full((b,), n, dtype=torch.int64, device=dev)
+
+    def enc():
+        return encode.encode_float_group(x, params, lens)
+
+    words, plan = enc()
+    if not (plan.valid.all() and (plan.bits == 18).all()):
+        raise AssertionError("K1 flagship: not all blocks valid at 18 bits")
+    row = plan.offsets[1]
+
+    def plain_enc(check):
+        err = 0
+        for s in chunks(b):
+            p = codec.BlockParams(*(t[s] for t in params))
+            st = encode.float_stats_plain(x[s], p, lens[s])
+            pl = encode.plan_float(st, p, lens[s])
+            w = encode.pack_float_plain(x[s], p, lens[s], pl)
+            if check:
+                err = max(err, int_err(w, words[s.start * row:
+                                                s.start * row + pl.total]))
+        return err
+
+    err1 = plain_enc(True)
+    if err1:
+        raise AssertionError("K1 flagship: words differ (%d)" % err1)
+    ms = time_ms(enc)
+    plain_ms = time_ms(lambda: plain_enc(False), reps=3, warmup=1)
+    results["K1"].update(ms=ms, plain_ms=plain_ms,
+                         max_abs_err=max(results["K1"]["max_abs_err"], err1))
+    log("K1 flagship %dx%d 18 bits: kernel %.3f ms (%.1f GB/s of f32), "
+        "plain %.3f ms (%.1f GB/s); words bitwise equal"
+        % (b, n, ms, gb / ms * 1e3, plain_ms, gb / plain_ms * 1e3))
+
+    w2d = words.view(b, row)
+    mins = torch.from_numpy(plan.mins).to(dev)
+    k1, k2 = codec.dither_keys(np.arange(b), 0, dev)
+
+    def dec():
+        return decode.decode_float_group(w2d, mins, params, 18, n,
+                                         "uniform", k1, k2)
+
+    out = dec()
+    dmax = float((out - x).abs().max())
+    if not dmax < 2 * 0.001:
+        raise AssertionError("K2 flagship: |x - x_hat| = %g" % dmax)
+    err2 = 0.0
+    for s in chunks(b):
+        p = codec.BlockParams(*(t[s] for t in params))
+        ref = decode.decode_float_plain(w2d[s], mins[s], p, 18, n,
+                                        "uniform", k1[s], k2[s])
+        err2 = max(err2, float_err(out[s], ref))
+    del out
+    ms = time_ms(dec)
+
+    def plain_dec():
+        for s in chunks(b):
+            p = codec.BlockParams(*(t[s] for t in params))
+            decode.decode_float_plain(w2d[s], mins[s], p, 18, n, "uniform",
+                                      k1[s], k2[s])
+
+    plain_ms = time_ms(plain_dec, reps=3, warmup=1)
+    results["K2"].update(ms=ms, plain_ms=plain_ms,
+                         max_abs_err=max(results["K2"]["max_abs_err"], err2))
+    log("K2 flagship uniform decode: kernel %.3f ms (%.1f GB/s of f32), "
+        "plain %.3f ms (%.1f GB/s); bitwise equal, |x - x_hat| <= %g"
+        % (ms, gb / ms * 1e3, plain_ms, gb / plain_ms * 1e3, dmax))
+    del x, words, w2d
+    torch.cuda.empty_cache()
+
+    xi = torch.randint(0, 1 << 18, (b, n), generator=gen, device=dev,
+                       dtype=torch.int64) + (1 << 53)
+    words, plan = encode.encode_int_group(xi, lens)
+    if not (plan.bits == 18).all():
+        raise AssertionError("K3 flagship: widths %s" % set(plan.bits))
+    err3 = 0
+    for s in chunks(b):
+        pl = plan._replace(mins=plan.mins[s], bits=plan.bits[s],
+                           offsets=plan.offsets[s] - plan.offsets[s.start],
+                           total=int(row * (s.stop - s.start)))
+        w = encode.delta_pack_int_plain(xi[s], lens[s], pl)
+        err3 = max(err3, int_err(w, words[s.start * row:s.stop * row]))
+    if err3:
+        raise AssertionError("K3 flagship: words differ (%d)" % err3)
+    ms = time_ms(lambda: encode.delta_pack_int(xi, lens, plan))
+
+    def plain_pack():
+        for s in chunks(b):
+            pl = plan._replace(mins=plan.mins[s], bits=plan.bits[s],
+                               offsets=plan.offsets[s]
+                               - plan.offsets[s.start],
+                               total=int(row * (s.stop - s.start)))
+            encode.delta_pack_int_plain(xi[s], lens[s], pl)
+
+    plain_ms = time_ms(plain_pack, reps=3, warmup=1)
+    gb8 = b * n * 8 / 1e9
+    results["K3"].update(ms=ms, plain_ms=plain_ms,
+                         max_abs_err=max(results["K3"]["max_abs_err"], err3))
+    log("K3 flagship int64 pack: kernel %.3f ms (%.1f GB/s of int64), "
+        "plain %.3f ms (%.1f GB/s); words bitwise equal"
+        % (ms, gb8 / ms * 1e3, plain_ms, gb8 / plain_ms * 1e3))
+    del xi, words
+    torch.cuda.empty_cache()
+
+
+# -- phase 4: the main path -------------------------------------------------
+
+
+def write_catalog(d, rows, seed=2024):
+    """A Rockstar-style hlist of ``rows`` halos plus the converter's
+    config, name index and type index."""
+    rng = np.random.default_rng(seed)
+    ids = np.arange(rows, dtype=np.int64) + 3_000_000_000
+    pid = np.where(rng.random(rows) < 0.8, -1, ids[rng.integers(0, rows,
+                                                                rows)])
+    num_prog = rng.integers(0, 6, rows)
+    # log masses keep clear of the mass cut (log10 7.75e9 = 9.889), so the
+    # parsed float32 and the source agree on which halos pass it
+    lm = rng.uniform(9, 15, rows)
+    mvir = 10.0 ** np.where(np.abs(lm - 9.889) < 0.01, lm + 0.02, lm)
+    rvir = 10.0 ** rng.uniform(0.5, 3.5, rows)
+    pos = rng.uniform(0, 250, (3, rows))
+    vel = np.clip(rng.normal(0, 300, (3, rows)), -9999, 9999)
+    cols = [ids, pid, num_prog, mvir, rvir, *pos, *vel]
+    fmt = "%d %d %d %.5e %.4f %.5f %.5f %.5f %.2f %.2f %.2f"
+    lines = [fmt % t for t in zip(*(c.tolist() for c in cols))]
+    hlist = os.path.join(d, "hlist_1.00000.list")
+    with open(hlist, "w") as f:
+        f.write("#ID PID Num_prog Mvir Rvir X Y Z VX VY VZ\n")
+        f.write("#Synthetic catalog, seed %d\n" % seed)
+        f.write("\n".join(lines))
+        f.write("\n")
+    with open(os.path.join(d, "names.txt"), "w") as f:
+        f.write("id ID\npid PID\nnum_prog Num_prog\nmvir Mvir\nrvir Rvir\n"
+                "x X\ny Y\nz Z\nvx VX\nvy VY\nvz VZ\n")
+    with open(os.path.join(d, "types.txt"), "w") as f:
+        f.write("id int64\npid int\nnum_prog int\n"
+                "mvir q_float log 1e5 1e16 0.001\n"
+                "rvir q_float log 1e-2 1e5 0.001\n"
+                "x q_float position\ny q_float position\nz q_float position\n"
+                "vx q_float linear -10000 10000 0.1\n"
+                "vy q_float linear -10000 10000 0.1\n"
+                "vz q_float linear -10000 10000 0.1\n")
+    config = os.path.join(d, "run.config")
+    with open(config, "w") as f:
+        f.write("[minh]\nL = 250\nEpsilon = 0.001\nMp = 1.54975e+08\n"
+                "MinParticles = 50\nMassName = mvir\n"
+                "NameIndex = %s\nTypeIndex = %s\n"
+                % (os.path.join(d, "names.txt"),
+                   os.path.join(d, "types.txt")))
+    source = {"pid": pid, "x": pos[0].astype(np.float32),
+              "mvir": mvir.astype(np.float32)}
+    return config, hlist, source
+
+
+# the catalog's float columns: (name, low, high, dx), log columns in log10
+COLUMNS = [("mvir", 5.0, 16.0, 0.001), ("rvir", -2.0, 5.0, 0.001),
+           ("x", 0.0, 250.0, 0.001), ("y", 0.0, 250.0, 0.001),
+           ("z", 0.0, 250.0, 0.001), ("vx", -1e4, 1e4, 0.1),
+           ("vy", -1e4, 1e4, 0.1), ("vz", -1e4, 1e4, 0.1)]
+
+
+def check_main_shapes(dev, n, rng):
+    """Each kernel against its plain version at the shapes the main path
+    gives it, and timed there: K1 on the 8 float columns of the row-block
+    (n rows), K3 on its 2 int columns, K2 on each float column."""
+    b = len(COLUMNS)
+    periodic = np.array([c[0] in ("x", "y", "z") for c in COLUMNS])
+    low = np.array([c[1] for c in COLUMNS], np.float32)
+    high = np.array([c[2] for c in COLUMNS], np.float32)
+    pixels = np.array([np.ceil(np.float32(h - lo) / np.float32(c[3]))
+                       for c, lo, h in zip(COLUMNS, low, high)], np.int64)
+    x = np.stack([rng.uniform(lo, h, n) for lo, h in zip(low, high)])
+    params = codec.block_params(low, high, pixels, periodic, dev)
+    xt = torch.from_numpy(x.astype(np.float32)).to(dev)
+    lens = torch.full((b,), n, dtype=torch.int64, device=dev)
+    stats = encode.float_stats(xt, params, lens)
+    err = int_err(stats, encode.float_stats_plain(xt, params, lens))
+    plan = encode.plan_float(stats, params, lens)
+    words = encode.pack_float(xt, params, lens, plan)
+    err = max(err, int_err(words, encode.pack_float_plain(xt, params, lens,
+                                                          plan)))
+    k1, k2 = codec.dither_keys(np.arange(b), 0, dev)
+    columns = []  # K2's arguments for each column, as read_floats gives them
+    for i in range(b):
+        w = words[plan.offsets[i]:plan.offsets[i] + (
+            int(plan.bits[i]) * n + 31) // 32].view(1, -1)
+        columns.append((w, torch.from_numpy(plan.mins[i:i + 1]).to(dev),
+                        codec.BlockParams(*(t[i:i + 1] for t in params)),
+                        int(plan.bits[i]), n))
+        for mode in codec.DITHER_MODES:
+            keys = (k1[i:i + 1], k2[i:i + 1])
+            float_err(decode.decode_float_group(*columns[i], mode, *keys),
+                      decode.decode_float_plain(*columns[i], mode, *keys))
+    ints = np.stack([np.where(rng.random(n) < 0.8, -1,
+                              rng.integers(3e9, 4e9, n)),
+                     rng.integers(0, 6, n)])
+    it = torch.from_numpy(ints).to(dev)
+    iwords, iplan = encode.encode_int_group(it, lens[:2])
+    err = max(err, int_err(iwords, encode.delta_pack_int_plain(
+        it, lens[:2], iplan)))
+    if err:
+        raise AssertionError("main-path shapes: max err %d" % err)
+    log("main-path shapes: K1 (8, %d), K2 (1, %d) x 8 columns x 3 modes, "
+        "K3 (2, %d): bitwise equal to the plain versions; widths %s, %s"
+        % (n, n, n, plan.bits.tolist(), iplan.bits.tolist()))
+
+    def decode_all():
+        for i, col in enumerate(columns):
+            decode.decode_float_group(*col, "uniform", k1[i:i + 1],
+                                      k2[i:i + 1])
+
+    t = {"K1 call": time_ms(lambda: encode.encode_float_group(xt, params,
+                                                              lens)),
+         "K1 stats": time_ms(lambda: encode.float_stats(xt, params, lens)),
+         "K1 pack": time_ms(lambda: encode.pack_float(xt, params, lens,
+                                                      plan)),
+         "K3 call": time_ms(lambda: encode.encode_int_group(it, lens[:2])),
+         "K3 pack": time_ms(lambda: encode.delta_pack_int(it, lens[:2],
+                                                          iplan)),
+         "K2 uniform, 8 columns": time_ms(decode_all)}
+    log("main-path shapes, ms (CUDA events, median of 7): %s" % ", ".join(
+        "%s %.4f" % kv for kv in t.items()))
+
+
+def main_path(dev):
+    shutil.rmtree(WORK, ignore_errors=True)
+    for sub in ("device", "host", "stages", "warm"):
+        os.makedirs(os.path.join(WORK, sub))
+    # set-up: the host text parser is native code that the reference
+    # package builds on first use; build it here, outside the timings
+    t0 = time.perf_counter()
+    warm = write_catalog(os.path.join(WORK, "warm"), 1000)[:2]
+    text_to_minh.main([*warm[:1], "all", warm[1],
+                       os.path.join(WORK, "warm")])
+    log("set-up: host text parser ready in %.2f s"
+        % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    config, hlist, source = write_catalog(WORK, ROWS)
+    log("main path: catalog of %d rows (%.1f MB) written in %.2f s"
+        % (ROWS, os.path.getsize(hlist) / 1e6, time.perf_counter() - t0))
+    keep = source["mvir"] > np.float32(1.54975e8 * 50)
+    check_main_shapes(dev, int(keep.sum()), np.random.default_rng(11))
+
+    # the counts start at zero here: the main path must launch every kernel
+    encode.K1_LAUNCHES = encode.K3_LAUNCHES = decode.K2_LAUNCHES = 0
+    t0 = time.perf_counter()
+    text_to_minh.main([config, "all", hlist, os.path.join(WORK, "device"),
+                       "--device"])
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    dev_file = os.path.join(WORK, "device", "hlist_1.00000.minh")
+
+    cfg = text_to_minh.parse_config(config)
+    idx = text_to_minh.open_index(cfg["NameIndex"])
+    args = (cfg, idx, text_to_minh.parse_types(cfg["TypeIndex"], idx),
+            text_to_minh.parse_vars("all", idx), hlist)
+    # the host file comes from the reference's own converter: its prefetch
+    # loop and mass cut, not the port's
+    host_file = os.path.join(WORK, "host", "hlist_1.00000.minh")
+    host_timer = StageTimer()
+    t0 = time.perf_counter()
+    ref_text_to_minh.convert_file(*args, host_file, device=False,
+                                  timer=host_timer)
+    t_host = time.perf_counter() - t0
+    with open(dev_file, "rb") as f:
+        dev_bytes = f.read()
+    with open(host_file, "rb") as f:
+        host_bytes = f.read()
+    if dev_bytes != host_bytes:
+        diff = next(i for i, (a, b) in enumerate(zip(dev_bytes, host_bytes))
+                    if a != b) if len(dev_bytes) == len(host_bytes) else -1
+        raise AssertionError("device file differs from the host file "
+                             "(sizes %d, %d; first differing byte %d)"
+                             % (len(dev_bytes), len(host_bytes), diff))
+    log("text_to_minh --device: %.3f s; reference host converter: %.3f s; "
+        "the two files are byte-identical (%d bytes)"
+        % (t_dev, t_host, len(dev_bytes)))
+
+    names = ["mvir", "rvir", "x", "y", "z", "vx", "vy", "vz"]
+    for mode in ("none", "midpoint", "uniform"):
+        r = minh.open(dev_file, dither=mode, seed=7)
+        try:
+            t0 = time.perf_counter()
+            got = minh_device.read_floats(r, names, dev)
+            t_read = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = r.floats(names)
+            t_host_read = time.perf_counter() - t0
+            kept = r.length
+            pid = r.ints(["pid"])["pid"]
+        finally:
+            r.close()
+        for name in names:
+            if got[name].shape != (kept,) or not np.array_equal(
+                    got[name].view(np.int32), want[name].view(np.int32)):
+                raise AssertionError("read_floats(%s) differs from the host "
+                                     "reader in mode %s" % (name, mode))
+        log("read_floats %s: %d columns x %d rows on the card in %.3f s, "
+            "host reader %.3f s; bitwise equal"
+            % (mode, len(names), kept, t_read, t_host_read))
+
+    if kept != keep.sum() or not np.array_equal(pid, source["pid"][keep]):
+        raise AssertionError("mass cut or pid column wrong")
+    dx_err = float(np.abs(got["x"] - source["x"][keep]).max())
+    if not (np.isfinite(got["x"]).all() and dx_err < 2 * 0.001):
+        raise AssertionError("positions off by %g" % dx_err)
+    launches = {"K1": encode.K1_LAUNCHES, "K2": decode.K2_LAUNCHES,
+                "K3": encode.K3_LAUNCHES}
+    log("main path launches: %s; positions within %.6g of the source"
+        % (launches, dx_err))
+    missing = [k for k, v in launches.items() if v < 1]
+    if missing:
+        raise AssertionError("kernels the main path never launched: %s"
+                             % missing)
+
+    # stage breakdown of one more device conversion (after the counts)
+    dev_stages = {}
+    text_to_minh.convert_file(*args, os.path.join(WORK, "stages", "s.minh"),
+                              dev, timer=dev_stages)
+    host_stages = {k: v["seconds"] for k, v in host_timer.report().items()
+                   if k in dev_stages}
+    for label, st in (("device", dev_stages),
+                      ("reference host converter", host_stages)):
+        log("stages, %s: %s" % (label, ", ".join(
+            "%s %.3f s" % kv for kv in st.items())))
+    return launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device (torch %s)" % torch.__version__)
+        return 2
+    t_start = time.perf_counter()
+    dev = cuda_device()
+    smi = card_info()
+    name = torch.cuda.get_device_name(0)
+    log("device: %s (%d visible); nvidia-smi: %s; torch %s, CUDA %s"
+        % (name, torch.cuda.device_count(), smi, torch.__version__,
+           torch.version.cuda))
+
+    t0 = time.perf_counter()
+    _build.load()
+    log("build: %.2f s" % (time.perf_counter() - t0))
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line:
+            log("  " + line.strip())
+
+    results = {k: {"max_abs_err": 0} for k in ("K1", "K2", "K3")}
+    rng = np.random.default_rng(5)
+    results["K1"]["max_abs_err"] = check_k1(dev, rng)
+    results["K2"]["max_abs_err"] = check_k2(dev, rng)
+    results["K3"]["max_abs_err"] = check_k3(dev, rng)
+    flagship(dev, results)
+
+    launches = main_path(dev)
+
+    banned = [m for m in sys.modules
+              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+              or m.startswith(("minnow_tpu.ops", "minnow_tpu.parallel",
+                               "minnow_tpu.formats.device_common",
+                               "minnow_tpu.formats.minh_device"))]
+    if banned:
+        raise AssertionError("imported: %s" % banned)
+    log("total %.1f s; no jax and no reference device module imported"
+        % (time.perf_counter() - t_start))
+
+    sources = {"K1": ("encode_float", "minnow_torch/csrc/encode_float.cu",
+                      "minnow_tpu/ops/pallas_encode.py:1045"),
+               "K2": ("decode_float", "minnow_torch/csrc/decode_float.cu",
+                      "minnow_tpu/ops/pallas_codec.py:526"),
+               "K3": ("pack_int", "minnow_torch/csrc/pack_int.cu",
+                      "minnow_tpu/ops/pallas_encode.py:949")}
+    kernels = [dict(name="%s %s" % (k, sources[k][0]), route="cuda",
+                    source=sources[k][1], replaces=sources[k][2],
+                    launches=launches[k], **results[k]) for k in sources]
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,135 @@
+"""Build and bind the CUDA kernels in ``minnow_torch/csrc``.
+
+The sources compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes -- no PyTorch headers, so a build takes
+seconds.  The library is built on first use, under a file lock, into
+``build/minnow_torch/`` at the checkout root, named by a hash of the
+sources and flags, so a changed source builds anew and a stale library is
+never loaded.  A failed build raises with nvcc's output; nothing is
+fetched and nothing else is tried.
+
+Each entry point launches on the stream it is given, allocates nothing,
+and returns ``cudaGetLastError()``; :func:`check` turns a nonzero code
+into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["load", "check", "NVCC_FLAGS", "build_log"]
+
+_PKG = Path(__file__).resolve().parents[1]
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "minnow_torch"
+
+# -fmad=false: no a*b+c contraction anywhere (spec bitwise equality);
+# nvcc's default -ftz=false/-prec-div=true keep IEEE division and
+# subnormals (no --use_fast_math)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+_U32 = ctypes.c_uint
+_SIGNATURES = {
+    # x, B, n, grid_y, low, dx, pixels, periodic, lens, stats, stream
+    "minnow_encode_float_stats": [_P, _I64, _I64, _U32, _P, _P, _P, _P,
+                                  _P, _P, _P],
+    # x, B, n, low, dx, pixels, periodic, m, mn, bits, lens, offsets,
+    # words, grid_y, stream
+    "minnow_encode_float_pack": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _U32, _P],
+    # words, B, row_words, n, bits, mins, low, dx, pixels, periodic,
+    # mode, k1, k2, out, grid_y, stream
+    "minnow_decode_float": [_P, _I64, _I64, _I64, _I32, _P, _P, _P, _P,
+                            _P, _I32, _P, _P, _P, _U32, _P],
+    # x, B, n, mins, bits, lens, offsets, words, grid_y, stream
+    "minnow_pack_int": [_P, _I64, _I64, _P, _P, _P, _P, _P, _U32, _P],
+}
+
+_lib = None
+_lib_lock = threading.Lock()
+_log = ""
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME=%s"
+                       % home)
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(lib_path: Path) -> str:
+    tmp = lib_path.with_suffix(".tmp%d" % os.getpid())
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(SRC_DIR.glob("*.cu"))]]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError("nvcc failed (%d):\n%s\n%s\n%s"
+                           % (res.returncode, " ".join(cmd), res.stdout,
+                              res.stderr))
+    os.replace(tmp, lib_path)
+    return res.stdout + res.stderr
+
+
+def load():
+    """The kernel library, built on first use."""
+    global _lib, _log
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lib_path = BUILD_DIR / ("libminnow_torch_%s.so" % _key())
+        with open(BUILD_DIR / "lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not lib_path.exists():
+                _log = _build(lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.minnow_error_string.argtypes = [ctypes.c_int]
+        lib.minnow_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def build_log() -> str:
+    """nvcc's output from the build this process ran ('' if the library
+    was already built)."""
+    return _log
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = load().minnow_error_string(err).decode()
+        raise RuntimeError("%s: CUDA error %d (%s)" % (what, err, msg))

@@ -1,0 +1,92 @@
+"""Float block decode on the device: kernel K2 beside its plain PyTorch
+version.
+
+A wrapper given CUDA tensors launches ``csrc/decode_float.cu`` or raises;
+given CPU tensors it runs the plain version.  Nothing else chooses
+between them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build, bitpack, codec
+from ._launch import expect, grid_y, on_card, stream_of
+
+__all__ = ["K2_LAUNCHES", "decode_float_group", "decode_float_plain"]
+
+K2_LAUNCHES = 0
+
+# elements each thread decodes (measured at 4096 x 2^17 on the H100:
+# PERF.md, Findings)
+DECODE_PER_THREAD = 16
+
+
+def decode_float_plain(words, mins, params, bits: int, n: int,
+                       dither: str, k1=None, k2=None):
+    """Plain version of K2: unpack, add the minimum, bound periodic
+    blocks into [0, pixels), dequantize with the dither."""
+    b, w = words.shape
+    dev = words.device
+    offsets = torch.arange(b, device=dev, dtype=torch.int64) * w
+    widths = torch.full((b,), bits, device=dev, dtype=torch.int64)
+    q = bitpack.unpack(words.reshape(-1), offsets, widths, n) + mins[:, None]
+    p = params.pixels.to(torch.int64)[:, None]
+    q = torch.where(params.periodic[:, None], codec.bound(q, 0, p), q)
+    u = None
+    if dither == "midpoint":
+        u = 0.5
+    elif dither == "uniform":
+        c = torch.arange(n, device=dev, dtype=torch.int64)[None, :]
+        u = codec.dither_hash_u(c, k1[:, None], k2[:, None])
+    return codec.dequantize(q, params.low, params.dx, u)
+
+
+def decode_float_group(words, mins, params: codec.BlockParams, bits: int,
+                       n: int, dither: str, k1=None, k2=None):
+    """Decode ``n`` elements of each row of ``words`` (B, W) int32 -- one
+    block stream per row, all at width ``bits`` (0..64) -- to (B, n)
+    float32 (K2 on the card).  ``mins`` (B,) int64.  ``dither`` is
+    ``none``, ``midpoint`` or ``uniform``; ``uniform`` takes the per-block
+    keys ``k1``, ``k2`` (B,) int32 of ``codec.dither_keys``."""
+    global K2_LAUNCHES
+    if dither not in codec.DITHER_MODES:
+        raise ValueError("unknown dither mode %r" % (dither,))
+    if not 0 <= bits <= 64:
+        raise ValueError("bits must lie in [0, 64], got %d" % bits)
+    expect(words, "words", torch.int32, (None, None))
+    b, w = words.shape
+    if w < bitpack.words_per_block(bits, n):
+        raise ValueError("rows of %d words cannot hold %d x %d bits"
+                         % (w, n, bits))
+    expect(mins, "mins", torch.int64, (b,))
+    expect(params.low, "low", torch.float32, (b,))
+    expect(params.dx, "dx", torch.float32, (b,))
+    expect(params.pixels, "pixels", torch.int32, (b,))
+    expect(params.periodic, "periodic", torch.bool, (b,))
+    tensors = [words, mins, *params]
+    if dither == "uniform":
+        if k1 is None or k2 is None:
+            raise ValueError("uniform dither needs the keys k1, k2")
+        expect(k1, "k1", torch.int32, (b,))
+        expect(k2, "k2", torch.int32, (b,))
+        tensors += [k1, k2]
+    if not on_card(*tensors):
+        return decode_float_plain(words, mins, params, bits, n, dither,
+                                  k1, k2)
+    out = torch.empty((b, n), dtype=torch.float32, device=words.device)
+    if b == 0 or n == 0:
+        return out
+    uniform = dither == "uniform"
+    with torch.cuda.device(words.device):
+        err = _build.load().minnow_decode_float(
+            words.data_ptr(), b, w, n, bits, mins.data_ptr(),
+            params.low.data_ptr(), params.dx.data_ptr(),
+            params.pixels.data_ptr(), params.periodic.data_ptr(),
+            codec.DITHER_MODES[dither],
+            k1.data_ptr() if uniform else None,
+            k2.data_ptr() if uniform else None, out.data_ptr(),
+            grid_y(n, DECODE_PER_THREAD), stream_of(words))
+    K2_LAUNCHES += 1
+    _build.check(err, "decode_float")
+    return out

@@ -1,0 +1,253 @@
+"""Block encode on the device: kernels K1 (float) and K3 (int), each beside
+its plain PyTorch version.
+
+A wrapper given CUDA tensors launches its kernel (``csrc/encode_float.cu``,
+``csrc/pack_int.cu``) or raises; given CPU tensors it runs the plain
+version.  Nothing else chooses between them.
+
+An encode is three steps: per-block stats on the device, a host plan
+(:class:`Plan`: each block's minimum, width and word offset), and the
+pack on the device.  Encoded blocks come back as one flat int32 word
+buffer (the uint32 bit patterns) holding each block's stream at its own
+width, back to back at ``plan.offsets`` (``bitpack.block_layout``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import _build, bitpack, codec
+from ._launch import expect, grid_y, on_card, stream_of
+
+__all__ = [
+    "K1_LAUNCHES",
+    "K3_LAUNCHES",
+    "Plan",
+    "float_stats",
+    "float_stats_plain",
+    "plan_float",
+    "pack_float",
+    "pack_float_plain",
+    "encode_float_group",
+    "plan_int",
+    "delta_pack_int",
+    "delta_pack_int_plain",
+    "encode_int_group",
+]
+
+# kernel launches made by the wrappers (K1 counts both of its launches)
+K1_LAUNCHES = 0
+K3_LAUNCHES = 0
+
+# items each thread takes: elements in K1's stats launch, output words in
+# the pack launches of K1 and K3.  Fewer, busier CTAs measured faster at
+# 4096 x 2^17 on the H100 (PERF.md, Findings)
+STATS_PER_THREAD = 32
+PACK_PER_THREAD = 8
+
+
+class Plan(NamedTuple):
+    """Host plan of a batch's encode, all (B,) numpy.  Blocks that are not
+    ``valid`` get width 0 and zero metadata: the caller encodes them with
+    ``spec``.  ``m`` is the periodic recentring offset (floats only)."""
+
+    mins: np.ndarray     # int64 block minimum (after recentring)
+    maxd: np.ndarray     # int64 largest delta (uint64 bit pattern)
+    bits: np.ndarray     # int64 width
+    valid: np.ndarray    # bool
+    m: np.ndarray        # int64
+    offsets: np.ndarray  # int64 word offset of each block's stream
+    total: int           # words in the buffer
+    max_words: int       # words in the largest block stream
+
+
+def _plan(mins, maxd, valid, m, lens) -> Plan:
+    mins = np.where(valid, mins, 0).astype(np.int64)
+    maxd = np.where(valid, maxd, 0).astype(np.int64)
+    # spec.precision_needed: the exact bit length of the uint64 delta
+    bits = np.array([int(v).bit_length() for v in maxd.view(np.uint64)],
+                    np.int64)
+    offsets, total = bitpack.block_layout(bits, lens)
+    max_words = int(bitpack.words_per_block(bits, lens).max(initial=0))
+    return Plan(mins, maxd, bits, np.asarray(valid, bool),
+                np.asarray(m, np.int64), offsets, total, max_words)
+
+
+def _put(a, dtype, device):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+
+def _check_float_args(x, params, lens):
+    expect(x, "x", torch.float32, (None, None))
+    b = x.shape[0]
+    expect(params.low, "low", torch.float32, (b,))
+    expect(params.dx, "dx", torch.float32, (b,))
+    expect(params.pixels, "pixels", torch.int32, (b,))
+    expect(params.periodic, "periodic", torch.bool, (b,))
+    expect(lens, "lens", torch.int64, (b,))
+    return on_card(x, *params, lens)
+
+
+def _check_lens(lens, n):
+    if lens.numel() and (int(lens.max()) > n or int(lens.min()) < 0):
+        raise ValueError("lens must lie in [0, %d]" % n)
+
+
+# -- K1: float encode ---------------------------------------------------------
+
+
+def float_stats_plain(x, params, lens):
+    """Plain version of K1's stats launch (``codec.float_block_stats``)."""
+    return codec.float_block_stats(x, params, lens)
+
+
+def float_stats(x, params: codec.BlockParams, lens):
+    """Per-block stats rows (B, 6) int32 of ``codec.float_block_stats``
+    for ``x`` (B, n) float32 over its first ``lens`` elements; K1's first
+    launch on the card."""
+    global K1_LAUNCHES
+    if not _check_float_args(x, params, lens):
+        return float_stats_plain(x, params, lens)
+    b, n = x.shape
+    _check_lens(lens, n)
+    stats = codec.stats_init(b, x.device)
+    if b == 0:
+        return stats
+    with torch.cuda.device(x.device):
+        err = _build.load().minnow_encode_float_stats(
+            x.data_ptr(), b, n, grid_y(int(lens.max()), STATS_PER_THREAD),
+            params.low.data_ptr(),
+            params.dx.data_ptr(), params.pixels.data_ptr(),
+            params.periodic.data_ptr(), lens.data_ptr(), stats.data_ptr(),
+            stream_of(x))
+    K1_LAUNCHES += 1
+    _build.check(err, "encode_float_stats")
+    return stats
+
+
+def plan_float(stats, params: codec.BlockParams, lens) -> Plan:
+    """Host plan from the stats rows: recentring offset, minimum and
+    width of each block, as ``spec.periodic_min_fast`` and
+    ``pallas_encode.py:591-617`` derive them."""
+    host = [t.cpu() for t in (stats, params.pixels, params.periodic, lens)]
+    m, mn, maxd, valid = (t.numpy() for t in codec.finish_float_stats(
+        *host))
+    return _plan(mn, maxd, valid, m, host[3].numpy())
+
+
+def pack_float_plain(x, params, lens, plan: Plan):
+    """Plain version of K1's pack launch."""
+    dev = x.device
+    q, _ = codec.quantize(x, params.low, params.dx)
+    p = params.pixels.to(torch.int64)[:, None]
+    m = _put(plan.m, np.int64, dev)[:, None]
+    q = torch.where(params.periodic[:, None], codec.bound(q, m, p), q)
+    return bitpack.pack(q - _put(plan.mins, np.int64, dev)[:, None],
+                        _put(plan.bits, np.int64, dev), lens,
+                        _put(plan.offsets, np.int64, dev), plan.total)
+
+
+def pack_float(x, params: codec.BlockParams, lens, plan: Plan):
+    """Pack each block's recentred, min-subtracted pixels at its planned
+    width (0..32) into the (plan.total,) int32 buffer; K1's second launch
+    on the card."""
+    global K1_LAUNCHES
+    if not _check_float_args(x, params, lens):
+        return pack_float_plain(x, params, lens, plan)
+    b, n = x.shape
+    _check_lens(lens, n)
+    if plan.bits.size != b or plan.bits.max(initial=0) > 32:
+        raise ValueError("the plan must give B widths in [0, 32]")
+    dev = x.device
+    words = torch.empty(plan.total, dtype=torch.int32, device=dev)
+    if plan.total == 0:
+        return words
+    m, mn, offsets = (_put(a, np.int64, dev)
+                      for a in (plan.m, plan.mins, plan.offsets))
+    bits = _put(plan.bits, np.int32, dev)
+    with torch.cuda.device(dev):
+        err = _build.load().minnow_encode_float_pack(
+            x.data_ptr(), b, n, params.low.data_ptr(), params.dx.data_ptr(),
+            params.pixels.data_ptr(), params.periodic.data_ptr(),
+            m.data_ptr(), mn.data_ptr(), bits.data_ptr(), lens.data_ptr(),
+            offsets.data_ptr(), words.data_ptr(),
+            grid_y(plan.max_words, PACK_PER_THREAD), stream_of(x))
+    K1_LAUNCHES += 1
+    _build.check(err, "encode_float_pack")
+    return words
+
+
+def encode_float_group(x, params: codec.BlockParams, lens):
+    """Encode float blocks ``x`` (B, n) float32 over their first ``lens``
+    elements: stats launch, host plan, pack launch.  Returns
+    ``(words, plan)``; every valid block has its true width."""
+    stats = float_stats(x, params, lens)
+    plan = plan_float(stats, params, lens)
+    return pack_float(x, params, lens, plan), plan
+
+
+# -- K3: int delta pack ---------------------------------------------------------
+
+
+def plan_int(x, lens) -> Plan:
+    """Host plan of an int batch: minimum and wrapped max delta of each
+    block by plain PyTorch reductions on ``x``'s device, as the JAX
+    package takes them in XLA (``codec.int_block_stats``)."""
+    mins, maxd = (t.cpu().numpy() for t in codec.int_block_stats(x, lens))
+    b = len(mins)
+    return _plan(mins, maxd, np.ones(b, bool), np.zeros(b, np.int64),
+                 lens.cpu().numpy())
+
+
+def _check_int_args(x, lens):
+    expect(x, "x", torch.int64, (None, None))
+    expect(lens, "lens", torch.int64, (x.shape[0],))
+    return on_card(x, lens)
+
+
+def delta_pack_int_plain(x, lens, plan: Plan):
+    """Plain version of K3."""
+    dev = x.device
+    return bitpack.pack(x - _put(plan.mins, np.int64, dev)[:, None],
+                        _put(plan.bits, np.int64, dev), lens,
+                        _put(plan.offsets, np.int64, dev), plan.total)
+
+
+def delta_pack_int(x, lens, plan: Plan):
+    """Pack ``x - mins`` (B, n) int64, wrapping, at each block's planned
+    width (0..64) over its first ``lens`` elements into the (plan.total,)
+    int32 buffer; K3 on the card."""
+    global K3_LAUNCHES
+    if not _check_int_args(x, lens):
+        return delta_pack_int_plain(x, lens, plan)
+    b, n = x.shape
+    _check_lens(lens, n)
+    if plan.bits.size != b or plan.bits.max(initial=0) > 64:
+        raise ValueError("the plan must give B widths in [0, 64]")
+    dev = x.device
+    words = torch.empty(plan.total, dtype=torch.int32, device=dev)
+    if plan.total == 0:
+        return words
+    mins, offsets = (_put(a, np.int64, dev)
+                     for a in (plan.mins, plan.offsets))
+    bits = _put(plan.bits, np.int32, dev)
+    with torch.cuda.device(dev):
+        err = _build.load().minnow_pack_int(
+            x.data_ptr(), b, n, mins.data_ptr(), bits.data_ptr(),
+            lens.data_ptr(), offsets.data_ptr(), words.data_ptr(),
+            grid_y(plan.max_words, PACK_PER_THREAD), stream_of(x))
+    K3_LAUNCHES += 1
+    _build.check(err, "pack_int")
+    return words
+
+
+def encode_int_group(x, lens):
+    """Encode int blocks ``x`` (B, n) int64 over their first ``lens``
+    elements: host plan from device reductions, then K3.  Returns
+    ``(words, plan)``."""
+    _check_int_args(x, lens)
+    plan = plan_int(x, lens)
+    return delta_pack_int(x, lens, plan), plan

@@ -1,0 +1,100 @@
+"""Batched block encode on one device (counterpart of
+``minnow_tpu/parallel/pipeline.py``).
+
+A batch of minnow blocks, one per row, goes to the device, is encoded
+there by kernel K1 (float) or K3 (int) at each block's true width, and
+comes back as per-block payload bytes plus the tail metadata the
+container needs (ref go/group.go:242-255, 312-327).  Float blocks the
+kernel does not certify (non-finite values, pixels beyond int32, or a
+periodic block with pixels outside ``[0, pixels)``) are encoded by the
+normative host encoder ``spec.encode_float_block``, as the reference's
+pipeline does (``pipeline.py:474-487``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from minnow_tpu.core import spec
+
+from ..ops import bitpack, codec, encode
+
+__all__ = ["EncodedBlocks", "BlockEncoder"]
+
+
+@dataclass
+class EncodedBlocks:
+    """Per-block packed payloads and tail metadata of a batch (the same
+    fields as the reference's ``EncodedBlocks``)."""
+
+    payloads: list  # list[bytes], one per block
+    mins: np.ndarray  # (B,) int64
+    bits: np.ndarray  # (B,) int64
+    lens: np.ndarray  # (B,) int64 valid lengths
+
+
+def _payloads(words: np.ndarray, offsets, bits, lens) -> list:
+    """Slice each block's bytes out of the flat word buffer."""
+    out = []
+    for off, width, n in zip(offsets, bits, lens):
+        nw = bitpack.words_per_block(int(width), int(n))
+        out.append(bitpack.words_to_bytes(words[off:off + nw], int(width),
+                                          int(n)))
+    return out
+
+
+class BlockEncoder:
+    """Encodes (B, N) batches of minnow blocks on ``device``: a CUDA
+    device runs the kernels, the CPU their plain versions."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    @staticmethod
+    def _as_batch(x, lens, dtype):
+        x = np.ascontiguousarray(x, dtype)
+        b, n = x.shape
+        if lens is None:
+            lens = np.full(b, n, dtype=np.int64)
+        else:
+            lens = np.asarray(lens, dtype=np.int64)
+        return x, b, n, lens
+
+    def _put(self, a):
+        return torch.from_numpy(a).to(self.device)
+
+    def encode_int_blocks(self, x, lens=None) -> EncodedBlocks:
+        """Encode (B, N) int64 blocks (ref go/group.go:242-255)."""
+        x, b, n, lens = self._as_batch(x, lens, np.int64)
+        words, plan = encode.encode_int_group(self._put(x), self._put(lens))
+        payloads = _payloads(words.cpu().numpy(), plan.offsets, plan.bits,
+                             lens)
+        return EncodedBlocks(payloads, plan.mins, plan.bits, lens)
+
+    def encode_float_blocks(self, x, low, high, pixels, lens=None,
+                            periodic=True) -> EncodedBlocks:
+        """Encode (B, N) float32 blocks (ref go/group.go:312-327).
+
+        ``low``/``high``/``pixels``/``periodic`` may be scalars or (B,)
+        arrays (per-block quantisation configs, as the multi-column minh
+        layout has)."""
+        x, b, n, lens = self._as_batch(x, lens, np.float32)
+        low = np.broadcast_to(np.asarray(low, np.float32), (b,)).copy()
+        high = np.broadcast_to(np.asarray(high, np.float32), (b,)).copy()
+        pixels = np.broadcast_to(np.asarray(pixels, np.int64), (b,)).copy()
+        periodic = np.broadcast_to(np.asarray(periodic, bool), (b,)).copy()
+        params = codec.block_params(low, high, pixels, periodic,
+                                    self.device)
+        words, plan = encode.encode_float_group(self._put(x), params,
+                                                self._put(lens))
+        payloads = _payloads(words.cpu().numpy(), plan.offsets, plan.bits,
+                             lens)
+        mins, bits = plan.mins.copy(), plan.bits.copy()
+        for i in np.nonzero(~plan.valid)[0]:
+            payloads[i], mins[i], bits[i], _ = spec.encode_float_block(
+                x[i, :lens[i]], low[i], high[i], int(pixels[i]),
+                periodic=bool(periodic[i]))
+        return EncodedBlocks(payloads, mins, bits, lens)

@@ -1,0 +1,124 @@
+"""A/B of the kernels' launch shapes (items per thread) on one CUDA card.
+
+    python3 -m minnow_torch.tools.ab_launch [--reps N]
+
+At the flagship block shape (4096 blocks x 2^17 elements, 18 bits) each
+launch runs at every value of its sweep of items per thread, in two
+passes of opposite order (median of N each, CUDA events), and its output
+must be bitwise equal to that at the shipped value.  The constants swept
+are ``encode.STATS_PER_THREAD`` (K1 stats), ``encode.PACK_PER_THREAD``
+(K1 pack and K3) and ``decode.DECODE_PER_THREAD`` (K2, uniform and none);
+they are set back afterwards.  A 2 GiB device copy gives the card's
+memory rate, and the host plans of K1 and K3 are timed beside them.
+
+The last lines are the nvidia-smi line and one JSON object with every
+time in milliseconds.  Compare numbers only within one run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from ..ops import codec, decode, encode
+from ..utils.device import card_info, cuda_device, time_ms
+
+SHAPE = (4096, 1 << 17)
+SWEEPS = {
+    "K1 stats": (encode, "STATS_PER_THREAD", [1, 2, 4, 8, 16, 32, 64]),
+    "K1 pack": (encode, "PACK_PER_THREAD", [1, 2, 4, 8, 16]),
+    "K3 pack": (encode, "PACK_PER_THREAD", [1, 2, 4, 8, 16]),
+    "K2 uniform": (decode, "DECODE_PER_THREAD", [1, 2, 4, 8, 16, 32]),
+    "K2 none": (decode, "DECODE_PER_THREAD", [1, 2, 4, 8, 16, 32]),
+}
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def sweep(label, fn, reps):
+    """Times of ``fn`` at each value of ``label``'s sweep, two passes."""
+    module, attr, values = SWEEPS[label]
+    shipped = getattr(module, attr)
+    want = _bits(fn())
+    times = {v: [] for v in values}
+    for order in (values, values[::-1]):
+        for v in order:
+            setattr(module, attr, v)
+            if not torch.equal(_bits(fn()), want):
+                raise AssertionError("%s at %d per thread differs from %d"
+                                     % (label, v, shipped))
+            times[v].append(time_ms(fn, reps))
+    setattr(module, attr, shipped)
+    print("%s (shipped %d): %s" % (label, shipped, ", ".join(
+        "%d: %.3f / %.3f ms" % (v, *t) for v, t in times.items())),
+        flush=True)
+    return {"shipped": shipped, "ms": times}
+
+
+def host_ms(fn, reps):
+    """Median wall milliseconds of ``fn`` ending in a device sync."""
+    out = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out[1:]))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=7)
+    reps = ap.parse_args(argv).reps
+    dev = cuda_device()
+    b, n = SHAPE
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.rand((b, n), generator=gen, device=dev) * 249.9
+    params = codec.block_params(np.zeros(b), np.full(b, 250.0),
+                                np.full(b, 250000), np.ones(b, bool), dev)
+    lens = torch.full((b,), n, dtype=torch.int64, device=dev)
+    out = {"shape": list(SHAPE), "bits": 18}
+    out["copy_2GiB_ms"] = time_ms(lambda: x.clone(), reps)
+    print("copy of 2 GiB f32 (4.3 GB moved): %.3f ms" % out["copy_2GiB_ms"],
+          flush=True)
+
+    stats = encode.float_stats(x, params, lens)
+    out["plan_float_ms"] = host_ms(
+        lambda: encode.plan_float(stats, params, lens), reps)
+    plan = encode.plan_float(stats, params, lens)
+    out["K1 stats"] = sweep("K1 stats",
+                            lambda: encode.float_stats(x, params, lens), reps)
+    out["K1 pack"] = sweep(
+        "K1 pack", lambda: encode.pack_float(x, params, lens, plan), reps)
+    words = encode.pack_float(x, params, lens, plan).view(b, -1)
+    mins = torch.from_numpy(plan.mins).to(dev)
+    k1, k2 = codec.dither_keys(np.arange(b), 0, dev)
+    for mode in ("uniform", "none"):
+        out["K2 " + mode] = sweep("K2 " + mode, lambda: decode.
+                                  decode_float_group(words, mins, params, 18,
+                                                     n, mode, k1, k2), reps)
+    del x, words
+    torch.cuda.empty_cache()
+
+    xi = torch.randint(0, 1 << 18, (b, n), generator=gen, device=dev,
+                       dtype=torch.int64) + (1 << 53)
+    out["plan_int_ms"] = host_ms(lambda: encode.plan_int(xi, lens), reps)
+    iplan = encode.plan_int(xi, lens)
+    out["K3 pack"] = sweep(
+        "K3 pack", lambda: encode.delta_pack_int(xi, lens, iplan), reps)
+    print("host plans: plan_float %.3f ms, plan_int %.3f ms"
+          % (out["plan_float_ms"], out["plan_int_ms"]))
+    smi = card_info()
+    out["card"] = smi
+    print(smi)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

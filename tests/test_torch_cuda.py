@@ -1,0 +1,172 @@
+"""The port's CUDA kernels on the card: each against its plain version,
+and the converter and reader against the host codec, bitwise.
+
+These tests need a CUDA device and skip without one.  The machine with
+the card has no jax, and tests/conftest.py imports it, so run them there
+from the repository root without the conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from minnow_tpu.cli import text_to_minh as ref_text_to_minh
+from minnow_tpu.core import spec
+from minnow_tpu.formats import minh
+from minnow_torch.cli import text_to_minh
+from minnow_torch.formats import minh_device
+from minnow_torch.ops import codec, decode, encode
+from minnow_torch.parallel.pipeline import BlockEncoder
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _same(a, b):
+    assert a.shape == b.shape
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _float_batch(rng, n):
+    """Position-config blocks: uniform, cluster, edge wrap, NaN, a pixel
+    beyond the range, a short block and a non-periodic velocity block."""
+    x = rng.uniform(0, 249.9, (7, n)).astype(np.float32)
+    x[1] = rng.uniform(120, 120.3, n)
+    x[2] = np.where(rng.random(n) < 0.5, rng.uniform(249.6, 249.99, n),
+                    rng.uniform(0, 0.3, n))
+    x[3, n // 2] = np.nan
+    x[4, min(1, n - 1)] = 255.0
+    x[6] = rng.uniform(-9000, 9000, n)
+    low = np.array([0.0] * 6 + [-1e4], np.float32)
+    high = np.array([250.0] * 6 + [1e4], np.float32)
+    pixels = np.array([250000] * 6 + [200000], np.int64)
+    periodic = np.array([1, 1, 1, 1, 1, 1, 0], bool)
+    lens = np.array([n] * 5 + [n // 2, n], np.int64)
+    return x, low, high, pixels, periodic, lens
+
+
+@pytest.mark.parametrize("n", [1, 999, 70001])
+def test_k1_matches_plain(dev, n):
+    rng = np.random.default_rng(n)
+    x, low, high, pixels, periodic, lens = _float_batch(rng, n)
+    params = codec.block_params(low, high, pixels, periodic, dev)
+    xt, lt = torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev)
+    before = encode.K1_LAUNCHES
+    stats = encode.float_stats(xt, params, lt)
+    _same(stats, encode.float_stats_plain(xt, params, lt))
+    plan = encode.plan_float(stats, params, lt)
+    _same(encode.pack_float(xt, params, lt, plan),
+          encode.pack_float_plain(xt, params, lt, plan))
+    assert encode.K1_LAUNCHES == before + (2 if plan.total else 1)
+
+
+@pytest.mark.parametrize("mode", list(codec.DITHER_MODES))
+def test_k2_matches_plain_at_every_width(dev, mode):
+    rng = np.random.default_rng(3)
+    b, n = 3, 1234
+    k1, k2 = codec.dither_keys(np.array([1, 8, 1 << 40]), 11, dev)
+    for bits in range(65):
+        w = max((bits * n + 31) // 32, 1)
+        words = torch.from_numpy(rng.integers(
+            0, 1 << 32, (b, w), dtype=np.uint64).astype(np.uint32)
+            .view(np.int32)).to(dev)
+        mins = torch.from_numpy(rng.integers(-1 << 30, 1 << 30, b)).to(dev)
+        params = codec.block_params(rng.uniform(-5, 0, b),
+                                    rng.uniform(10, 50, b),
+                                    rng.integers(1, 1 << 31, b),
+                                    np.array([1, 0, 1], bool), dev)
+        _same(decode.decode_float_group(words, mins, params, bits, n, mode,
+                                        k1, k2),
+              decode.decode_float_plain(words, mins, params, bits, n, mode,
+                                        k1, k2))
+
+
+def test_k3_matches_plain_and_spec(dev):
+    rng = np.random.default_rng(5)
+    n = 777
+    rows = []
+    for bits in range(1, 65):
+        lo = (1 << 53) + 99 if bits < 62 else -(1 << (bits - 1))
+        d = rng.integers(0, (1 << 64) - 1 if bits == 64 else 1 << bits, n,
+                         dtype=np.uint64)
+        d[0], d[1] = 0, (1 << bits) - 1
+        rows.append(d.view(np.int64) + np.int64(lo))
+    x = np.stack(rows)
+    xt = torch.from_numpy(x).to(dev)
+    lt = torch.full((64,), n, dtype=torch.int64, device=dev)
+    words, plan = encode.encode_int_group(xt, lt)
+    _same(words, encode.delta_pack_int_plain(xt, lt, plan))
+    assert list(plan.bits) == list(range(1, 65))
+    enc = BlockEncoder(dev).encode_int_blocks(x)
+    for i in range(64):
+        assert (enc.payloads[i], enc.mins[i], enc.bits[i]) == \
+            spec.encode_int_block(x[i])
+
+
+def test_block_encoder_float_on_card_matches_spec(dev):
+    rng = np.random.default_rng(7)
+    n = 5003
+    x, low, high, pixels, periodic, lens = _float_batch(rng, n)
+    enc = BlockEncoder(dev).encode_float_blocks(x, low, high, pixels,
+                                                lens=lens,
+                                                periodic=periodic)
+    for i in range(len(x)):
+        payload, mn, bits, _ = spec.encode_float_block(
+            x[i, :lens[i]], low[i], high[i], int(pixels[i]),
+            periodic=bool(periodic[i]))
+        assert (enc.payloads[i], enc.mins[i], enc.bits[i]) == \
+            (payload, mn, bits), i
+
+
+def test_text_to_minh_device_and_read_on_card(dev, tmp_path):
+    rng = np.random.default_rng(9)
+    n = 3000
+    lines = ["#ID PID X Mvir"]
+    for i in range(n):
+        lines.append("%d %d %.5f %.5e" % (
+            i + (1 << 54), -1 if i % 3 else i, rng.uniform(0, 250),
+            10 ** rng.uniform(9, 15)))
+    (tmp_path / "hlist_1.0.list").write_text("\n".join(lines) + "\n")
+    (tmp_path / "names.txt").write_text("id ID\npid PID\nx X\nmvir Mvir\n")
+    (tmp_path / "types.txt").write_text(
+        "id int64\npid int\nx q_float position\n"
+        "mvir q_float log 1e5 1e16 0.001\n")
+    config = tmp_path / "run.config"
+    config.write_text(
+        "[minh]\nL = 250\nEpsilon = 0.001\nMp = 1.54975e+08\n"
+        "MinParticles = 50\nMassName = mvir\nNameIndex = %s\n"
+        "TypeIndex = %s\n" % (tmp_path / "names.txt",
+                              tmp_path / "types.txt"))
+    out = tmp_path / "out"
+    out.mkdir()
+    text_to_minh.main([str(config), "all", str(tmp_path / "hlist_1.0.list"),
+                       str(out), "--device"])
+    cfg = text_to_minh.parse_config(str(config))
+    idx = text_to_minh.open_index(cfg["NameIndex"])
+    host = tmp_path / "host.minh"
+    # the reference's own host converter, which imports no jax without
+    # its device flag
+    ref_text_to_minh.convert_file(
+        cfg, idx, text_to_minh.parse_types(cfg["TypeIndex"], idx),
+        text_to_minh.parse_vars("all", idx),
+        str(tmp_path / "hlist_1.0.list"), str(host), device=False)
+    device_file = out / "hlist_1.0.minh"
+    assert device_file.read_bytes() == host.read_bytes()
+    for mode in codec.DITHER_MODES:
+        r = minh.open(str(device_file), dither=mode, seed=2)
+        try:
+            got = minh_device.read_floats(r, ["x", "mvir"], dev)
+            want = r.floats(["x", "mvir"])
+        finally:
+            r.close()
+        for name in got:
+            np.testing.assert_array_equal(got[name].view(np.int32),
+                                          want[name].view(np.int32))
