@@ -8,24 +8,40 @@ Phases, each of which raises at its first failure:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels of minnow_torch/csrc, with nvcc for sm_90a;
 3. kernels against their plain PyTorch versions on the card, bitwise
-   (tolerance zero: words, metadata and float bit patterns must be equal):
-   K1 float encode at widths 1..30, K2 float decode at widths 0..64 in the
-   three dither modes, K3 int pack at widths 1..64 with IDs above 2^53;
-   then each at the flagship block shape (4096 blocks x 2^17 elements,
-   18 bits), timed (CUDA events, median of 7 after warm-up) beside its
-   plain version;
-4. the main path: a 1,000,000-row Rockstar-style catalog through
+   (tolerance zero: words, metadata, integers and float bit patterns must
+   be equal): K1 float encode at widths 1..30, K2 float decode at widths
+   0..64 in the three dither modes, K3 int pack at widths 1..64 with IDs
+   above 2^53, K4 int unpack at widths 0..64 with minimums at -2^63 and
+   2^63 - 1 and deltas of 2^width - 1; then each at the flagship block
+   shape (4096 blocks x 2^17 elements, 18 bits; K4 also at 54 bits),
+   timed (CUDA events, median of 7 after warm-up) beside its plain
+   version;
+4. the first main path: a 1,000,000-row Rockstar-style catalog through
    ``text_to_minh --device``, byte-compared with the file of the
-   reference's host converter, and every float column read back on the
-   card with ``read_floats`` in the none, midpoint and uniform modes,
-   bitwise equal to the host reader.  Every kernel must have been
-   launched by this phase.  Before it, each kernel is checked and timed
-   at the shapes this phase gives it.
+   reference's host converter, every float column read back on the card
+   with ``read_floats`` in the none, midpoint and uniform modes and the
+   ``int`` columns with ``read_ints``, bitwise equal to the host reader.
+   Every kernel must have been launched by this phase.  Before it, K1 to
+   K4 are checked against their plain versions, bitwise, and timed at the
+   shapes this phase gives them (one block of each column);
+5. the boundary path: a second 1,000,000-row catalog with ``int`` IDs
+   above 2^53 through ``text_to_minh --device`` (byte-compared as in 4)
+   and ``read_ints``, then ``minh_to_bnd --device`` at 8 cells and
+   boundary 5.0, byte-compared with the reference's host ``minh_to_bnd``
+   (``uniform`` dither); every column of the boundary file read back on
+   the card, bitwise equal to the host reader, and ``inspect_minh
+   --device`` printing what the reference's host ``inspect_minh`` prints.
+   Every kernel must have been launched by this phase.  Before it, K1 to
+   K4 are checked and timed as in 4 at this phase's shapes: K1 and K3 on
+   one column of 512 ragged cells, K2 and K4 on a bucket of cells of one
+   length.
 
-The last three lines are the nvidia-smi line, a JSON line with each
-kernel's numbers, and ``{"ok": true, "device": ...}``.  Without a CUDA
-device, or outside a checkout of the repository, it fails before printing
-any of them.  Files go to ``build/chip_smoke/`` in the checkout.
+Phases 4 and 5 each start the launch counts at zero and read them at
+their end.  The last three lines are the nvidia-smi line, a JSON line
+with each kernel's numbers (launches: the sum over phases 4 and 5), and
+``{"ok": true, "device": ...}``.  Without a CUDA device, or outside a
+checkout of the repository, it fails before printing any of them.  Files
+go to ``build/chip_smoke/`` in the checkout.
 
 The port reuses the reference package's host layers that touch no device
 (the minnow container, the minh format, text ingest); the script checks
@@ -33,6 +49,8 @@ at the end that no jax module and none of the reference's device modules
 were imported.
 """
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -45,20 +63,26 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# the reference's host converter and format modules import no jax
+# the reference's host CLIs and format modules import no jax
+from minnow_tpu.cli import inspect_minh as ref_inspect_minh  # noqa: E402
+from minnow_tpu.cli import minh_to_bnd as ref_minh_to_bnd  # noqa: E402
 from minnow_tpu.cli import text_to_minh as ref_text_to_minh  # noqa: E402
 from minnow_tpu.formats import minh  # noqa: E402
 from minnow_tpu.utils.profiling import StageTimer  # noqa: E402
+from minnow_torch.cli import inspect_minh, minh_to_bnd  # noqa: E402
 from minnow_torch.cli import text_to_minh  # noqa: E402
 from minnow_torch.formats import minh_device  # noqa: E402
-from minnow_torch.ops import _build, codec, decode, encode  # noqa: E402
+from minnow_torch.ops import _build, bitpack, codec, decode  # noqa: E402
+from minnow_torch.ops import encode  # noqa: E402
 from minnow_torch.utils.device import (card_info, cuda_device,  # noqa: E402
                                        time_ms)
 
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 FLAGSHIP = (4096, 1 << 17)     # blocks x elements: the JAX bench's shape
 CHUNK = 256                    # blocks per plain-version chunk
-ROWS = 1_000_000               # catalog rows of the main path
+ROWS = 1_000_000               # catalog rows of the main paths
+CELLS, BOUNDARY = 8, 5.0       # minh_to_bnd of phase 5: 512 cells at L 250
+KERNELS = ("K1", "K2", "K3", "K4")
 
 
 def log(*args):
@@ -205,6 +229,50 @@ def check_k3(dev, rng):
     return err
 
 
+def same_ints(got, want, what):
+    """0 when the int64 tensors are bitwise equal; raises otherwise."""
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError("%s: %d elements differ" % (what, bad))
+    return 0
+
+
+def check_k4(dev, rng):
+    """Rows exactly ``words_per_block`` long (no padding), so the last
+    element of each row ends in its last word.  Row 0 starts with the
+    widest delta, 2^bits - 1, on the minimum -2^63; row 1 has the minimum
+    2^63 - 1, so the add wraps both ways."""
+    b, n = 4, 1001
+    for bits in range(65):
+        w = max(bitpack.words_per_block(bits, n), 1)
+        words = rng.integers(0, 1 << 32, (b, w), dtype=np.uint64) \
+            .astype(np.uint32)
+        words[0, :-(-bits // 32)] = 0xFFFFFFFF
+        mins = np.array([-(1 << 63), (1 << 63) - 1,
+                         rng.integers(-(1 << 62), 1 << 62), 0], np.int64)
+        wt = torch.from_numpy(words.view(np.int32)).to(dev)
+        mt = torch.from_numpy(mins).to(dev)
+        got = decode.decode_int_group(wt, mt, bits, n)
+        same_ints(got, decode.decode_int_plain(wt, mt, bits, n),
+                  "K4 sweep at %d bits" % bits)
+        if bits == 64 and int(got[0, 0]) != (1 << 63) - 1:
+            raise AssertionError("K4: -2^63 + (2^64 - 1) gave %d"
+                                 % int(got[0, 0]))
+    log("K4 sweep: widths 0..64 at n=%d, minimums -2^63 and 2^63 - 1, "
+        "bitwise equal to the plain version" % n)
+    return 0
+
+
+def reset_counts():
+    encode.K1_LAUNCHES = encode.K3_LAUNCHES = 0
+    decode.K2_LAUNCHES = decode.K4_LAUNCHES = 0
+
+
+def counts():
+    return {"K1": encode.K1_LAUNCHES, "K2": decode.K2_LAUNCHES,
+            "K3": encode.K3_LAUNCHES, "K4": decode.K4_LAUNCHES}
+
+
 def chunks(b):
     return [slice(i, min(i + CHUNK, b)) for i in range(0, b, CHUNK)]
 
@@ -319,18 +387,66 @@ def flagship(dev, results):
     log("K3 flagship int64 pack: kernel %.3f ms (%.1f GB/s of int64), "
         "plain %.3f ms (%.1f GB/s); words bitwise equal"
         % (ms, gb8 / ms * 1e3, plain_ms, gb8 / plain_ms * 1e3))
+
+    # K4 reads K3's words back: a round trip to xi, bitwise
+    k4_flagship(xi, words.view(b, row), plan.mins, 18, results)
     del xi, words
     torch.cuda.empty_cache()
+
+    # one wide width at the same shape: every block spans exactly 54 bits
+    xw = torch.randint(0, 1 << 54, (b, n), generator=gen, device=dev,
+                       dtype=torch.int64) - (1 << 62)
+    xw[:, 0] = -(1 << 62)
+    xw[:, 1] = -(1 << 62) + (1 << 54) - 1
+    words, plan = encode.encode_int_group(xw, lens)
+    if not (plan.bits == 54).all():
+        raise AssertionError("K3 at 54 bits: widths %s" % set(plan.bits))
+    k4_flagship(xw, words.view(b, plan.offsets[1]), plan.mins, 54, results)
+    del xw, words
+    torch.cuda.empty_cache()
+
+
+def k4_flagship(x, w2d, mins_np, bits, results):
+    """K4 on K3's words of ``x`` (4096 x 2^17): the output must be ``x``
+    bitwise, as must the plain version's, chunk by chunk; both timed.
+    The 18-bit times go into the kernels line."""
+    b, n = x.shape
+    mins = torch.from_numpy(mins_np).to(x.device)
+
+    def dec():
+        return decode.decode_int_group(w2d, mins, bits, n)
+
+    same_ints(dec(), x, "K4 flagship round trip at %d bits" % bits)
+    for s in chunks(b):
+        same_ints(decode.decode_int_plain(w2d[s], mins[s], bits, n), x[s],
+                  "K4 plain round trip at %d bits" % bits)
+    ms = time_ms(dec)
+
+    def plain_dec():
+        for s in chunks(b):
+            decode.decode_int_plain(w2d[s], mins[s], bits, n)
+
+    plain_ms = time_ms(plain_dec, reps=3, warmup=1)
+    if bits == 18:
+        results["K4"].update(ms=ms, plain_ms=plain_ms)
+    gb8 = b * n * 8 / 1e9
+    moved = (w2d.numel() * 4 + b * n * 8) / 1e9
+    log("K4 flagship int64 unpack at %d bits: kernel %.3f ms (%.1f GB/s of "
+        "int64, %.1f GB/s moved), plain %.3f ms (%.1f GB/s); both equal to "
+        "the packed values bitwise"
+        % (bits, ms, gb8 / ms * 1e3, moved / ms * 1e3, plain_ms,
+           gb8 / plain_ms * 1e3))
 
 
 # -- phase 4: the main path -------------------------------------------------
 
 
-def write_catalog(d, rows, seed=2024):
-    """A Rockstar-style hlist of ``rows`` halos plus the converter's
-    config, name index and type index."""
+def write_catalog(d, rows, seed=2024, id0=3_000_000_000, id_type="int64"):
+    """A Rockstar-style hlist of ``rows`` halos, IDs from ``id0`` typed
+    ``id_type``, plus the converter's config, name index and type
+    index."""
     rng = np.random.default_rng(seed)
-    ids = np.arange(rows, dtype=np.int64) + 3_000_000_000
+    ids = np.arange(rows, dtype=np.int64) + id0
     pid = np.where(rng.random(rows) < 0.8, -1, ids[rng.integers(0, rows,
                                                                 rows)])
     num_prog = rng.integers(0, 6, rows)
@@ -354,8 +470,8 @@ def write_catalog(d, rows, seed=2024):
         f.write("id ID\npid PID\nnum_prog Num_prog\nmvir Mvir\nrvir Rvir\n"
                 "x X\ny Y\nz Z\nvx VX\nvy VY\nvz VZ\n")
     with open(os.path.join(d, "types.txt"), "w") as f:
-        f.write("id int64\npid int\nnum_prog int\n"
-                "mvir q_float log 1e5 1e16 0.001\n"
+        f.write("id %s\npid int\nnum_prog int\n" % id_type)
+        f.write("mvir q_float log 1e5 1e16 0.001\n"
                 "rvir q_float log 1e-2 1e5 0.001\n"
                 "x q_float position\ny q_float position\nz q_float position\n"
                 "vx q_float linear -10000 10000 0.1\n"
@@ -383,7 +499,8 @@ COLUMNS = [("mvir", 5.0, 16.0, 0.001), ("rvir", -2.0, 5.0, 0.001),
 def check_main_shapes(dev, n, rng):
     """Each kernel against its plain version at the shapes the main path
     gives it, and timed there: K1 on the 8 float columns of the row-block
-    (n rows), K3 on its 2 int columns, K2 on each float column."""
+    (n rows), K3 on its 2 int columns, K2 on each float column, K4 on
+    each int column."""
     b = len(COLUMNS)
     periodic = np.array([c[0] in ("x", "y", "z") for c in COLUMNS])
     low = np.array([c[1] for c in COLUMNS], np.float32)
@@ -419,11 +536,23 @@ def check_main_shapes(dev, n, rng):
     iwords, iplan = encode.encode_int_group(it, lens[:2])
     err = max(err, int_err(iwords, encode.delta_pack_int_plain(
         it, lens[:2], iplan)))
+    icolumns = []  # K4's arguments for each int column, as read_ints gives
+    for i in range(2):
+        nw = bitpack.words_per_block(int(iplan.bits[i]), n)
+        icolumns.append((iwords[int(iplan.offsets[i]):
+                                int(iplan.offsets[i]) + nw].view(1, -1),
+                         torch.from_numpy(iplan.mins[i:i + 1]).to(dev),
+                         int(iplan.bits[i]), n))
+        got = decode.decode_int_group(*icolumns[i])
+        same_ints(got, decode.decode_int_plain(*icolumns[i]),
+                  "K4 at the main path's shape")
+        same_ints(got, it[i:i + 1], "K4 round trip at the main path's shape")
     if err:
         raise AssertionError("main-path shapes: max err %d" % err)
     log("main-path shapes: K1 (8, %d), K2 (1, %d) x 8 columns x 3 modes, "
-        "K3 (2, %d): bitwise equal to the plain versions; widths %s, %s"
-        % (n, n, n, plan.bits.tolist(), iplan.bits.tolist()))
+        "K3 (2, %d), K4 (1, %d) x 2 columns: bitwise equal to the plain "
+        "versions, K4 to K3's input; widths %s, %s"
+        % (n, n, n, n, plan.bits.tolist(), iplan.bits.tolist()))
 
     def decode_all():
         for i, col in enumerate(columns):
@@ -438,7 +567,11 @@ def check_main_shapes(dev, n, rng):
          "K3 call": time_ms(lambda: encode.encode_int_group(it, lens[:2])),
          "K3 pack": time_ms(lambda: encode.delta_pack_int(it, lens[:2],
                                                           iplan)),
-         "K2 uniform, 8 columns": time_ms(decode_all)}
+         "K2 uniform, 8 columns": time_ms(decode_all),
+         "K4, 2 columns": time_ms(lambda: [decode.decode_int_group(*c)
+                                           for c in icolumns]),
+         "K4 plain, 2 columns": time_ms(lambda: [decode.decode_int_plain(*c)
+                                                 for c in icolumns])}
     log("main-path shapes, ms (CUDA events, median of 7): %s" % ", ".join(
         "%s %.4f" % kv for kv in t.items()))
 
@@ -463,39 +596,8 @@ def main_path(dev):
     check_main_shapes(dev, int(keep.sum()), np.random.default_rng(11))
 
     # the counts start at zero here: the main path must launch every kernel
-    encode.K1_LAUNCHES = encode.K3_LAUNCHES = decode.K2_LAUNCHES = 0
-    t0 = time.perf_counter()
-    text_to_minh.main([config, "all", hlist, os.path.join(WORK, "device"),
-                       "--device"])
-    torch.cuda.synchronize()
-    t_dev = time.perf_counter() - t0
-    dev_file = os.path.join(WORK, "device", "hlist_1.00000.minh")
-
-    cfg = text_to_minh.parse_config(config)
-    idx = text_to_minh.open_index(cfg["NameIndex"])
-    args = (cfg, idx, text_to_minh.parse_types(cfg["TypeIndex"], idx),
-            text_to_minh.parse_vars("all", idx), hlist)
-    # the host file comes from the reference's own converter: its prefetch
-    # loop and mass cut, not the port's
-    host_file = os.path.join(WORK, "host", "hlist_1.00000.minh")
-    host_timer = StageTimer()
-    t0 = time.perf_counter()
-    ref_text_to_minh.convert_file(*args, host_file, device=False,
-                                  timer=host_timer)
-    t_host = time.perf_counter() - t0
-    with open(dev_file, "rb") as f:
-        dev_bytes = f.read()
-    with open(host_file, "rb") as f:
-        host_bytes = f.read()
-    if dev_bytes != host_bytes:
-        diff = next(i for i, (a, b) in enumerate(zip(dev_bytes, host_bytes))
-                    if a != b) if len(dev_bytes) == len(host_bytes) else -1
-        raise AssertionError("device file differs from the host file "
-                             "(sizes %d, %d; first differing byte %d)"
-                             % (len(dev_bytes), len(host_bytes), diff))
-    log("text_to_minh --device: %.3f s; reference host converter: %.3f s; "
-        "the two files are byte-identical (%d bytes)"
-        % (t_dev, t_host, len(dev_bytes)))
+    reset_counts()
+    dev_file, args, host_timer = convert_both(config, hlist, WORK)
 
     names = ["mvir", "rvir", "x", "y", "z", "vx", "vy", "vz"]
     for mode in ("none", "midpoint", "uniform"):
@@ -525,14 +627,11 @@ def main_path(dev):
     dx_err = float(np.abs(got["x"] - source["x"][keep]).max())
     if not (np.isfinite(got["x"]).all() and dx_err < 2 * 0.001):
         raise AssertionError("positions off by %g" % dx_err)
-    launches = {"K1": encode.K1_LAUNCHES, "K2": decode.K2_LAUNCHES,
-                "K3": encode.K3_LAUNCHES}
+    check_read_ints(dev_file, dev)
+    launches = counts()
     log("main path launches: %s; positions within %.6g of the source"
         % (launches, dx_err))
-    missing = [k for k, v in launches.items() if v < 1]
-    if missing:
-        raise AssertionError("kernels the main path never launched: %s"
-                             % missing)
+    need_all(launches, "the main path")
 
     # stage breakdown of one more device conversion (after the counts)
     dev_stages = {}
@@ -544,6 +643,302 @@ def main_path(dev):
                       ("reference host converter", host_stages)):
         log("stages, %s: %s" % (label, ", ".join(
             "%s %.3f s" % kv for kv in st.items())))
+    return launches
+
+
+def same_file(a, b, what):
+    """Raise unless files ``a`` and ``b`` hold the same bytes; returns
+    their size."""
+    with open(a, "rb") as f:
+        got = f.read()
+    with open(b, "rb") as f:
+        want = f.read()
+    if got != want:
+        diff = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                    min(len(got), len(want)))
+        raise AssertionError("%s: the files differ (sizes %d, %d; first "
+                             "differing byte %d)"
+                             % (what, len(got), len(want), diff))
+    return len(got)
+
+
+def convert_both(config, hlist, work):
+    """``text_to_minh --device`` of ``hlist`` into ``work``/device and the
+    reference's host converter into ``work``/host (its own prefetch loop
+    and mass cut, not the port's); the two files must be byte-identical.
+    Returns the device file, the converter's arguments and the host
+    converter's stage timer."""
+    t0 = time.perf_counter()
+    text_to_minh.main([config, "all", hlist, os.path.join(work, "device"),
+                       "--device"])
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    dev_file = os.path.join(work, "device", "hlist_1.00000.minh")
+
+    cfg = text_to_minh.parse_config(config)
+    idx = text_to_minh.open_index(cfg["NameIndex"])
+    args = (cfg, idx, text_to_minh.parse_types(cfg["TypeIndex"], idx),
+            text_to_minh.parse_vars("all", idx), hlist)
+    host_file = os.path.join(work, "host", "hlist_1.00000.minh")
+    host_timer = StageTimer()
+    t0 = time.perf_counter()
+    ref_text_to_minh.convert_file(*args, host_file, device=False,
+                                  timer=host_timer)
+    t_host = time.perf_counter() - t0
+    size = same_file(dev_file, host_file, "text_to_minh --device")
+    log("text_to_minh --device: %.3f s; reference host converter: %.3f s; "
+        "the two files are byte-identical (%d bytes)" % (t_dev, t_host, size))
+    return dev_file, args, host_timer
+
+
+def check_read_ints(fname, dev):
+    """Every ``Int`` column of ``fname`` read on the card with
+    ``read_ints``, bitwise equal to the host reader; returns the widths
+    K4 decoded."""
+    r = minh.open(fname)
+    try:
+        names = [n for n, c in zip(r.names, r.columns) if c.type == minh.Int]
+        t0 = time.perf_counter()
+        got = minh_device.read_ints(r, names, dev)
+        t_read = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = r.ints(names)
+        t_host = time.perf_counter() - t0
+        widths = {n: minh_device.block_widths(r, n) for n in names}
+    finally:
+        r.close()
+    for n in names:
+        if got[n].dtype != np.int64 or not np.array_equal(got[n], want[n]):
+            raise AssertionError("read_ints(%s) differs from the host reader"
+                                 % n)
+    log("read_ints %s: %d rows on the card in %.3f s, host reader %.3f s; "
+        "bitwise equal; widths %s" % (names, len(want[names[0]]), t_read,
+                                      t_host, widths))
+    return {w for ws in widths.values() for w in ws}
+
+
+def need_all(launches, what):
+    missing = [k for k, v in launches.items() if v < 1]
+    if missing:
+        raise AssertionError("kernels %s never launched: %s"
+                             % (what, missing))
+
+
+def read_all(fname, device, dither="uniform", seed=3):
+    """Every column of ``fname``, routed by type as the CLIs route it."""
+    r = minh.open(fname, dither=dither, seed=seed)
+    try:
+        return {n: minh_device.read_column(r, n, device) for n in r.names}
+    finally:
+        r.close()
+
+
+def printed(fn, *args):
+    """What ``fn(*args)`` prints to standard output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args)
+    return buf.getvalue()
+
+
+def bucket(words, plan, n, k):
+    """The words of the first ``k`` blocks of a flat encode buffer, all of
+    length ``n`` and one width, as a (k, W) bucket of the bucketed read."""
+    bits = {int(b) for b in plan.bits[:k]}
+    if len(bits) != 1:
+        raise AssertionError("bucket blocks at widths %s" % sorted(bits))
+    nw = bitpack.words_per_block(bits.pop(), n)
+    return torch.stack([words[int(o):int(o) + nw] for o in plan.offsets[:k]])
+
+
+def check_boundary_shapes(dev, rng):
+    """Each kernel against its plain version at the shapes phase 5 gives
+    it, and timed there.  K1 and K3 take one column of 512 ragged cells,
+    as ``DeviceBoundaryWriter`` batches them: 3,619..4,026 rows, zeros
+    beyond each cell's length, one empty cell.  K2 and K4 take a bucket of
+    three cells of one length, as the bucketed read groups them: the
+    writer's own words (a round trip for K4), and K4 also random words at
+    the int widths of the boundary file (1, 3, 20 and 54 bits)."""
+    b, k, n = CELLS ** 3, 3, 3800
+    lens_np = rng.integers(3619, 4027, b)
+    lens_np[:k], lens_np[b // 2] = n, 0
+    width = int(lens_np.max())
+    mask = np.arange(width)[None, :] < lens_np[:, None]
+    lens = torch.from_numpy(lens_np).to(dev)
+    side = 250.0 / CELLS
+    t = []  # (what, ms)
+
+    def timed(what, fn, **kw):
+        t.append((what, time_ms(fn, **kw)))
+
+    # float columns: x (a cell and its ghost zones, wrapping) and vx
+    for name, lo, hi, dx in (COLUMNS[2], COLUMNS[5]):
+        if name == "x":
+            base = (np.arange(b) % CELLS) * side - BOUNDARY
+            v = ((base[:, None] + rng.uniform(0, side + 2 * BOUNDARY,
+                                              (b, width))) % 250.0)
+            v = v.astype(np.float32)
+            v[v >= 250] = 0
+        else:
+            v = rng.uniform(-1000, 1000, (b, width))
+        xt = torch.from_numpy(np.where(mask, v, 0).astype(np.float32)).to(dev)
+        pixels = np.ceil(np.float32(hi - lo) / np.float32(dx))
+        params = codec.block_params(np.full(b, lo), np.full(b, hi),
+                                    np.full(b, pixels, np.int64),
+                                    np.full(b, name == "x"), dev)
+        stats = encode.float_stats(xt, params, lens)
+        err = int_err(stats, encode.float_stats_plain(xt, params, lens))
+        plan = encode.plan_float(stats, params, lens)
+        words = encode.pack_float(xt, params, lens, plan)
+        err = max(err, int_err(words, encode.pack_float_plain(
+            xt, params, lens, plan)))
+        if err:
+            raise AssertionError("K1 at 512 ragged cells, %s: max err %d"
+                                 % (name, err))
+        col = (bucket(words, plan, n, k),
+               torch.from_numpy(plan.mins[:k]).to(dev),
+               codec.BlockParams(*(p[:k] for p in params)),
+               int(plan.bits[0]), n)
+        keys = codec.dither_keys(np.arange(k), 0, dev)
+        for mode in codec.DITHER_MODES:
+            float_err(decode.decode_float_group(*col, mode, *keys),
+                      decode.decode_float_plain(*col, mode, *keys))
+
+        def plain_enc():
+            st = encode.float_stats_plain(xt, params, lens)
+            pl = encode.plan_float(st, params, lens)
+            encode.pack_float_plain(xt, params, lens, pl)
+
+        timed("K1 call, %s" % name,
+              lambda: encode.encode_float_group(xt, params, lens))
+        timed("plain", plain_enc, reps=3, warmup=1)
+        timed("K2 uniform, %s at %d bits" % (name, col[3]),
+              lambda: decode.decode_float_group(*col, "uniform", *keys))
+        timed("plain",
+              lambda: decode.decode_float_plain(*col, "uniform", *keys))
+
+    # int columns: id (2^53 + 1 + 20 bits), pid (-1 or an ID), num_prog
+    ids = (1 << 53) + 1 + rng.integers(0, ROWS, (b, width))
+    pid = np.where(rng.random((b, width)) < 0.8, -1, ids)
+    for name, v in (("id", ids), ("pid", pid),
+                    ("num_prog", rng.integers(0, 6, (b, width)))):
+        it = torch.from_numpy(np.where(mask, v, 0)).to(dev)
+        iwords, iplan = encode.encode_int_group(it, lens)
+        err = int_err(iwords, encode.delta_pack_int_plain(it, lens, iplan))
+        if err:
+            raise AssertionError("K3 at 512 ragged cells, %s: max err %d"
+                                 % (name, err))
+        col = (bucket(iwords, iplan, n, k),
+               torch.from_numpy(iplan.mins[:k]).to(dev), int(iplan.bits[0]),
+               n)
+        got = decode.decode_int_group(*col)
+        same_ints(got, decode.decode_int_plain(*col),
+                  "K4 on a bucket of %s" % name)
+        same_ints(got, it[:k, :n], "K4 round trip of %s" % name)
+        timed("K3 call, %s at %d bits" % (name, col[2]),
+              lambda: encode.encode_int_group(it, lens))
+        timed("plain", lambda: encode.delta_pack_int_plain(it, lens, iplan),
+              reps=3, warmup=1)
+    for bits in (1, 3, 20, 54):
+        words = rng.integers(0, 1 << 32, (k, bitpack.words_per_block(bits, n)),
+                             dtype=np.uint64).astype(np.uint32)
+        col = (torch.from_numpy(words.view(np.int32)).to(dev),
+               torch.from_numpy(ids[:k, 0].copy()).to(dev), bits, n)
+        same_ints(decode.decode_int_group(*col), decode.decode_int_plain(*col),
+                  "K4 on a bucket at %d bits" % bits)
+        timed("K4 at %d bits" % bits, lambda: decode.decode_int_group(*col))
+        timed("plain", lambda: decode.decode_int_plain(*col))
+    log("boundary-path shapes: K1 (512, %d) and K3 (512, %d), cells of "
+        "%d..%d rows and one empty, K2 and K4 (%d, %d): bitwise equal to "
+        "the plain versions, K4 to K3's input"
+        % (width, width, lens_np[lens_np > 0].min(), width, k, n))
+    log("boundary-path shapes, ms (CUDA events, median of 7; the plain "
+        "versions of K1 and K3 median of 3; each 'plain' is the plain "
+        "version of the entry before it): %s"
+        % ", ".join("%s %.4f" % kv for kv in t))
+
+
+def boundary_path(dev):
+    """Phase 5: a catalog with ``int`` IDs above 2^53 to minh on the card,
+    then to the boundary layout with ``minh_to_bnd --device``, read back
+    and inspected on the card; every file and value against the
+    reference's host path."""
+    work = os.path.join(WORK, "boundary")
+    for sub in ("device", "host", "bnd_device", "bnd_host"):
+        os.makedirs(os.path.join(work, sub))
+    t0 = time.perf_counter()
+    config, hlist, _ = write_catalog(work, ROWS, seed=2025,
+                                     id0=(1 << 53) + 1, id_type="int")
+    log("boundary path: catalog of %d rows, int IDs from 2^53 + 1, written "
+        "in %.2f s" % (ROWS, time.perf_counter() - t0))
+    check_boundary_shapes(dev, np.random.default_rng(13))
+
+    # the counts start at zero here: this path must launch every kernel
+    reset_counts()
+    t_start = time.perf_counter()
+    src, _, _ = convert_both(config, hlist, work)
+    widths = check_read_ints(src, dev)
+
+    t0 = time.perf_counter()
+    minh_to_bnd.main([str(CELLS), str(BOUNDARY), src,
+                      os.path.join(work, "bnd_device"), "--device"])
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    bnd = os.path.join(work, "bnd_device", "hlist_1.00000.bnd.minh")
+    host_bnd = os.path.join(work, "bnd_host", "hlist_1.00000.bnd.minh")
+    t0 = time.perf_counter()
+    ref_minh_to_bnd.convert_file(src, host_bnd, CELLS, BOUNDARY,
+                                 device=False)
+    t_host = time.perf_counter() - t0
+    size = same_file(bnd, host_bnd, "minh_to_bnd --device")
+    r = minh.open(bnd)
+    rows, blocks = r.length, r.blocks
+    lens = np.asarray(r.block_lengths)
+    r.close()
+    log("minh_to_bnd --device (%d cells, boundary %g): %.3f s; reference "
+        "host minh_to_bnd: %.3f s; the two files are byte-identical (%d "
+        "bytes, %d rows in %d cells of %d..%d rows)"
+        % (CELLS ** 3, BOUNDARY, t_dev, t_host, size, rows, blocks,
+           lens.min(), lens.max()))
+
+    before = counts()
+    t0 = time.perf_counter()
+    got = read_all(bnd, dev)
+    t_read = time.perf_counter() - t0
+    after = counts()
+    t0 = time.perf_counter()
+    want = read_all(bnd, None)
+    t_host_read = time.perf_counter() - t0
+    for n, v in want.items():
+        if got[n].dtype != v.dtype or not np.array_equal(
+                got[n].view(np.uint8), v.view(np.uint8)):
+            raise AssertionError("boundary column %s read on the card "
+                                 "differs from the host reader" % n)
+    log("boundary file read, %d columns, uniform: %.3f s on the card in %d "
+        "K2 and %d K4 launches (one per cell length and width), host reader "
+        "%.3f s; bitwise equal"
+        % (len(want), t_read, after["K2"] - before["K2"],
+           after["K4"] - before["K4"], t_host_read))
+
+    t0 = time.perf_counter()
+    out = printed(inspect_minh.main, [bnd, "--device"])
+    t_inspect = time.perf_counter() - t0
+    ref_out = printed(ref_inspect_minh.main, [bnd])
+    if out != ref_out:
+        raise AssertionError("inspect_minh --device prints otherwise than "
+                             "the reference's host inspect_minh:\n%s\n%s"
+                             % (out, ref_out))
+    log("inspect_minh --device: %.3f s, %d lines equal to the reference's "
+        "host output" % (t_inspect, len(out.splitlines())))
+
+    launches = counts()
+    log("boundary path launches: %s; K4 widths of the source file %s; "
+        "%.3f s in all"
+        % (launches, sorted(widths), time.perf_counter() - t_start))
+    need_all(launches, "the boundary path")
+    if not (min(widths) <= 32 < max(widths)):
+        raise AssertionError("K4 ran at widths %s: not both <= 32 and > 32"
+                             % sorted(widths))
     return launches
 
 
@@ -566,14 +961,21 @@ def main():
         if "registers" in line or "spill" in line:
             log("  " + line.strip())
 
-    results = {k: {"max_abs_err": 0} for k in ("K1", "K2", "K3")}
+    results = {k: {"max_abs_err": 0} for k in KERNELS}
     rng = np.random.default_rng(5)
     results["K1"]["max_abs_err"] = check_k1(dev, rng)
     results["K2"]["max_abs_err"] = check_k2(dev, rng)
     results["K3"]["max_abs_err"] = check_k3(dev, rng)
+    results["K4"]["max_abs_err"] = check_k4(dev, rng)
     flagship(dev, results)
 
-    launches = main_path(dev)
+    t0 = time.perf_counter()
+    first = main_path(dev)
+    log("phase 4: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    second = boundary_path(dev)
+    log("phase 5: %.1f s" % (time.perf_counter() - t0))
+    launches = {k: first[k] + second[k] for k in KERNELS}
 
     banned = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -590,7 +992,9 @@ def main():
                "K2": ("decode_float", "minnow_torch/csrc/decode_float.cu",
                       "minnow_tpu/ops/pallas_codec.py:526"),
                "K3": ("pack_int", "minnow_torch/csrc/pack_int.cu",
-                      "minnow_tpu/ops/pallas_encode.py:949")}
+                      "minnow_tpu/ops/pallas_encode.py:949"),
+               "K4": ("unpack_int", "minnow_torch/csrc/unpack_int.cu",
+                      "minnow_tpu/ops/pallas_codec.py:592 + :641")}
     kernels = [dict(name="%s %s" % (k, sources[k][0]), route="cuda",
                     source=sources[k][1], replaces=sources[k][2],
                     launches=launches[k], **results[k]) for k in sources]

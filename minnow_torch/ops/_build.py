@@ -55,6 +55,8 @@ _SIGNATURES = {
                             _P, _I32, _P, _P, _P, _U32, _P],
     # x, B, n, mins, bits, lens, offsets, words, grid_y, stream
     "minnow_pack_int": [_P, _I64, _I64, _P, _P, _P, _P, _P, _U32, _P],
+    # words, B, row_words, n, bits, mins, out, grid_y, stream
+    "minnow_unpack_int": [_P, _I64, _I64, _I64, _I32, _P, _P, _U32, _P],
 }
 
 _lib = None

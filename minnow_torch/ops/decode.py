@@ -1,9 +1,9 @@
-"""Float block decode on the device: kernel K2 beside its plain PyTorch
-version.
+"""Block decode on the device: kernels K2 (float) and K4 (int), each
+beside its plain PyTorch version.
 
-A wrapper given CUDA tensors launches ``csrc/decode_float.cu`` or raises;
-given CPU tensors it runs the plain version.  Nothing else chooses
-between them.
+A wrapper given CUDA tensors launches its kernel (``csrc/decode_float.cu``,
+``csrc/unpack_int.cu``) or raises; given CPU tensors it runs the plain
+version.  Nothing else chooses between them.
 """
 
 from __future__ import annotations
@@ -13,24 +13,70 @@ import torch
 from . import _build, bitpack, codec
 from ._launch import expect, grid_y, on_card, stream_of
 
-__all__ = ["K2_LAUNCHES", "decode_float_group", "decode_float_plain"]
+__all__ = ["K2_LAUNCHES", "K4_LAUNCHES", "decode_float_group",
+           "decode_float_plain", "decode_int_group", "decode_int_plain"]
 
 K2_LAUNCHES = 0
+K4_LAUNCHES = 0
 
-# elements each thread decodes (measured at 4096 x 2^17 on the H100:
-# PERF.md, Findings)
+# elements each thread decodes, in K2 and in K4 (measured at 4096 x 2^17
+# on the H100: PERF.md, Findings)
 DECODE_PER_THREAD = 16
+UNPACK_PER_THREAD = 16
+
+
+def _check_words(words, bits: int, n: int):
+    """Raise unless ``words`` (B, W) int32 holds ``n`` elements of width
+    ``bits`` (0..64) in each row; returns (B, W)."""
+    if not 0 <= bits <= 64:
+        raise ValueError("bits must lie in [0, 64], got %d" % bits)
+    expect(words, "words", torch.int32, (None, None))
+    b, w = words.shape
+    if w < bitpack.words_per_block(bits, n):
+        raise ValueError("rows of %d words cannot hold %d x %d bits"
+                         % (w, n, bits))
+    return b, w
+
+
+def decode_int_plain(words, mins, bits: int, n: int):
+    """Plain version of K4: unpack each row at width ``bits`` and add its
+    block's minimum, wrapping in int64 (``spec.decode_int_block``)."""
+    b, w = words.shape
+    dev = words.device
+    offsets = torch.arange(b, device=dev, dtype=torch.int64) * w
+    widths = torch.full((b,), bits, device=dev, dtype=torch.int64)
+    return bitpack.unpack(words.reshape(-1), offsets, widths, n) \
+        + mins[:, None]
+
+
+def decode_int_group(words, mins, bits: int, n: int):
+    """Decode ``n`` elements of each row of ``words`` (B, W) int32 -- one
+    int block stream per row, all at width ``bits`` (0..64) -- to (B, n)
+    int64, each its delta plus the row's ``mins`` (B,) int64 (K4 on the
+    card)."""
+    global K4_LAUNCHES
+    b, w = _check_words(words, bits, n)
+    expect(mins, "mins", torch.int64, (b,))
+    if not on_card(words, mins):
+        return decode_int_plain(words, mins, bits, n)
+    out = torch.empty((b, n), dtype=torch.int64, device=words.device)
+    if b == 0 or n == 0:
+        return out
+    with torch.cuda.device(words.device):
+        err = _build.load().minnow_unpack_int(
+            words.data_ptr(), b, w, n, bits, mins.data_ptr(), out.data_ptr(),
+            grid_y(n, UNPACK_PER_THREAD), stream_of(words))
+    K4_LAUNCHES += 1
+    _build.check(err, "unpack_int")
+    return out
 
 
 def decode_float_plain(words, mins, params, bits: int, n: int,
                        dither: str, k1=None, k2=None):
     """Plain version of K2: unpack, add the minimum, bound periodic
     blocks into [0, pixels), dequantize with the dither."""
-    b, w = words.shape
+    q = decode_int_plain(words, mins, bits, n)
     dev = words.device
-    offsets = torch.arange(b, device=dev, dtype=torch.int64) * w
-    widths = torch.full((b,), bits, device=dev, dtype=torch.int64)
-    q = bitpack.unpack(words.reshape(-1), offsets, widths, n) + mins[:, None]
     p = params.pixels.to(torch.int64)[:, None]
     q = torch.where(params.periodic[:, None], codec.bound(q, 0, p), q)
     u = None
@@ -52,13 +98,7 @@ def decode_float_group(words, mins, params: codec.BlockParams, bits: int,
     global K2_LAUNCHES
     if dither not in codec.DITHER_MODES:
         raise ValueError("unknown dither mode %r" % (dither,))
-    if not 0 <= bits <= 64:
-        raise ValueError("bits must lie in [0, 64], got %d" % bits)
-    expect(words, "words", torch.int32, (None, None))
-    b, w = words.shape
-    if w < bitpack.words_per_block(bits, n):
-        raise ValueError("rows of %d words cannot hold %d x %d bits"
-                         % (w, n, bits))
+    b, w = _check_words(words, bits, n)
     expect(mins, "mins", torch.int64, (b,))
     expect(params.low, "low", torch.float32, (b,))
     expect(params.dx, "dx", torch.float32, (b,))

@@ -7,9 +7,11 @@ launch runs at every value of its sweep of items per thread, in two
 passes of opposite order (median of N each, CUDA events), and its output
 must be bitwise equal to that at the shipped value.  The constants swept
 are ``encode.STATS_PER_THREAD`` (K1 stats), ``encode.PACK_PER_THREAD``
-(K1 pack and K3) and ``decode.DECODE_PER_THREAD`` (K2, uniform and none);
-they are set back afterwards.  A 2 GiB device copy gives the card's
-memory rate, and the host plans of K1 and K3 are timed beside them.
+(K1 pack and K3), ``decode.DECODE_PER_THREAD`` (K2, uniform and none) and
+``decode.UNPACK_PER_THREAD`` (K4, on K3's words at 18 bits and at 54
+bits); they are set back afterwards.  A 2 GiB device copy gives the
+card's memory rate, and the host plans of K1 and K3 are timed beside
+them.
 
 The last lines are the nvidia-smi line and one JSON object with every
 time in milliseconds.  Compare numbers only within one run.
@@ -34,6 +36,8 @@ SWEEPS = {
     "K3 pack": (encode, "PACK_PER_THREAD", [1, 2, 4, 8, 16]),
     "K2 uniform": (decode, "DECODE_PER_THREAD", [1, 2, 4, 8, 16, 32]),
     "K2 none": (decode, "DECODE_PER_THREAD", [1, 2, 4, 8, 16, 32]),
+    "K4 18 bits": (decode, "UNPACK_PER_THREAD", [1, 2, 4, 8, 16, 32]),
+    "K4 54 bits": (decode, "UNPACK_PER_THREAD", [1, 2, 4, 8, 16, 32]),
 }
 
 
@@ -59,6 +63,24 @@ def sweep(label, fn, reps):
         "%d: %.3f / %.3f ms" % (v, *t) for v, t in times.items())),
         flush=True)
     return {"shipped": shipped, "ms": times}
+
+
+def unpack_sweep(out, label, x, lens, reps):
+    """K4's sweep on K3's words of ``x``, after checking the round trip."""
+    b, n = x.shape
+    words, plan = encode.encode_int_group(x, lens)
+    w2d = words.view(b, -1)
+    mins = torch.from_numpy(plan.mins).to(x.device)
+    bits = int(plan.bits[0])
+    if not (plan.bits == bits).all():
+        raise AssertionError("%s: widths %s" % (label, set(plan.bits)))
+
+    def dec():
+        return decode.decode_int_group(w2d, mins, bits, n)
+
+    if not torch.equal(dec(), x):
+        raise AssertionError("%s: the round trip differs" % label)
+    out[label] = sweep(label, dec, reps)
 
 
 def host_ms(fn, reps):
@@ -112,6 +134,14 @@ def main(argv=None):
     iplan = encode.plan_int(xi, lens)
     out["K3 pack"] = sweep(
         "K3 pack", lambda: encode.delta_pack_int(xi, lens, iplan), reps)
+    unpack_sweep(out, "K4 18 bits", xi, lens, reps)
+    del xi
+    torch.cuda.empty_cache()
+    # every block spans exactly 54 bits
+    xw = torch.randint(0, 1 << 54, (b, n), generator=gen, device=dev,
+                       dtype=torch.int64)
+    xw[:, 0], xw[:, 1] = 0, (1 << 54) - 1
+    unpack_sweep(out, "K4 54 bits", xw, lens, reps)
     print("host plans: plan_float %.3f ms, plan_int %.3f ms"
           % (out["plan_float_ms"], out["plan_int_ms"]))
     smi = card_info()

@@ -12,13 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from minnow_tpu.cli import minh_to_bnd as ref_minh_to_bnd
 from minnow_tpu.cli import text_to_minh as ref_text_to_minh
 from minnow_tpu.core import spec
 from minnow_tpu.formats import minh
-from minnow_torch.cli import text_to_minh
+from minnow_torch.cli import minh_to_bnd, text_to_minh
 from minnow_torch.formats import minh_device
-from minnow_torch.ops import codec, decode, encode
+from minnow_torch.ops import bitpack, codec, decode, encode
 from minnow_torch.parallel.pipeline import BlockEncoder
+from test_torch_minh_to_bnd import BND, CELLS, write_catalog
 
 pytestmark = pytest.mark.cuda
 
@@ -170,3 +172,57 @@ def test_text_to_minh_device_and_read_on_card(dev, tmp_path):
         for name in got:
             np.testing.assert_array_equal(got[name].view(np.int32),
                                           want[name].view(np.int32))
+
+
+@pytest.mark.parametrize("n", [1, 45, 4099])
+def test_k4_matches_plain_at_every_width(dev, n):
+    """Rows exactly ``words_per_block`` long, row 0 starting with the
+    widest delta on the minimum -2^63, row 1 on 2^63 - 1."""
+    rng = np.random.default_rng(n)
+    for bits in range(65):
+        w = max(bitpack.words_per_block(bits, n), 1)
+        words = rng.integers(0, 1 << 32, (3, w), dtype=np.uint64) \
+            .astype(np.uint32)
+        words[0, :-(-bits // 32)] = 0xFFFFFFFF
+        wt = torch.from_numpy(words.view(np.int32)).to(dev)
+        mt = torch.tensor([-(1 << 63), (1 << 63) - 1, -12345], device=dev)
+        before = decode.K4_LAUNCHES
+        got = decode.decode_int_group(wt, mt, bits, n)
+        assert decode.K4_LAUNCHES == before + 1
+        assert torch.equal(got, decode.decode_int_plain(wt, mt, bits, n)), \
+            bits
+
+
+@pytest.mark.parametrize("mode", list(codec.DITHER_MODES))
+def test_minh_to_bnd_device_matches_reference_host(dev, tmp_path, mode):
+    src = write_catalog(tmp_path, n=3000)
+    ref = tmp_path / "ref.bnd.minh"
+    port = tmp_path / "port.bnd.minh"
+    ref_minh_to_bnd.convert_file(str(src), str(ref), CELLS, BND,
+                                 device=False, dither=mode)
+    before = decode.K4_LAUNCHES, encode.K3_LAUNCHES
+    minh_to_bnd.convert_file(str(src), str(port), CELLS, BND, dev,
+                             dither=mode)
+    assert decode.K4_LAUNCHES > before[0] and encode.K3_LAUNCHES > before[1]
+    assert port.read_bytes() == ref.read_bytes()
+
+
+def test_read_ints_on_card(dev, tmp_path):
+    """The source file (one row-block) and its boundary layout (one block
+    per cell, ragged, some empty): every Int column equal to the host
+    reader."""
+    src = write_catalog(tmp_path, n=3000)
+    bnd = tmp_path / "b.bnd.minh"
+    ref_minh_to_bnd.convert_file(str(src), str(bnd), CELLS, BND,
+                                 device=False)
+    for fname in (src, bnd):
+        r = minh.open(str(fname))
+        try:
+            names = [n for n, c in zip(r.names, r.columns)
+                     if c.type == minh.Int]
+            got = minh_device.read_ints(r, names, dev)
+            want = r.ints(names)
+        finally:
+            r.close()
+        for name in names:
+            np.testing.assert_array_equal(got[name], want[name], name)

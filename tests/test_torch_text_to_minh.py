@@ -1,7 +1,7 @@
 """The port's text_to_minh, end to end on the CPU: the file it writes
 equals the host codec's and the JAX package's --device file byte for
-byte, --device refuses to run without CUDA, and the port runs with jax
-unimportable."""
+byte, --device refuses to run without CUDA, and the port (converter,
+readers, minh_to_bnd) runs with jax unimportable."""
 
 import os
 import subprocess
@@ -119,7 +119,7 @@ BLOCK_JAX = textwrap.dedent("""
     import pathlib
     import numpy as np
     import minnow_torch
-    from minnow_torch.cli import text_to_minh
+    from minnow_torch.cli import inspect_minh, minh_to_bnd, text_to_minh
     from minnow_tpu.formats import minh
     from minnow_torch.formats import minh_device
     from minnow_torch.ops import _build, bitpack, codec, decode, encode
@@ -142,6 +142,15 @@ BLOCK_JAX = textwrap.dedent("""
     want = r.floats(["x", "mvir"])
     for k in got:
         assert (got[k].view(np.int32) == want[k].view(np.int32)).all()
+    assert (minh_device.read_ints(r, ["pid"], "cpu")["pid"]
+            == r.ints(["pid"])["pid"]).all()
+    r.close()
+    minh_to_bnd.main(["2", "5.0", fname, str(tmp)])
+    minh_to_bnd.convert_file(fname, str(tmp / "port.bnd.minh"), 2, 5.0,
+                             "cpu")
+    assert open(tmp / "hlist_1.00000.bnd.minh", "rb").read() == \
+        open(tmp / "port.bnd.minh", "rb").read()
+    inspect_minh.inspect(str(tmp / "port.bnd.minh"), ["pid"], "cpu")
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     assert not loaded, loaded
     print("NO_JAX_OK")
