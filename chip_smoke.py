@@ -6,23 +6,31 @@
 Phases, each of which raises at its first failure:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels of minnow_torch/csrc, with nvcc for sm_90a;
+2. build: the CUDA kernels of minnow_torch/csrc, one nvcc for each source,
+   all started together, for sm_90a;
 3. kernels against their plain PyTorch versions on the card, bitwise
    (tolerance zero: words, metadata, integers and float bit patterns must
    be equal): K1 float encode at widths 1..30, K2 float decode at widths
    0..64 in the three dither modes, K3 int pack at widths 1..64 with IDs
    above 2^53, K4 int unpack at widths 0..64 with minimums at -2^63 and
-   2^63 - 1 and deltas of 2^width - 1; then each at the flagship block
-   shape (4096 blocks x 2^17 elements, 18 bits; K4 also at 54 bits),
-   timed (CUDA events, median of 7 after warm-up) beside its plain
-   version;
+   2^63 - 1 and deltas of 2^width - 1, K5 (the pack from the stats
+   launch's pixels) at widths 1..32, equal to K1's pack too; the TPU's
+   per-tile kernels on their counterparts: B9 ``decode_float_group`` in
+   none and midpoint, B10 ``decode_int_group`` with zero minimums and B11
+   ``pack_batch`` at widths 1..32 (also against ``spec.pack_bits``).
+   Then each kernel at the flagship block shape (4096 blocks x 2^17
+   elements, 18 bits; K4 also at 54 bits), timed (CUDA events, median of
+   7 after warm-up) beside its plain version; K1's two launches, the
+   stats launch storing pixels, and K5 apart.  The path of K5,
+   ``encode_float_group(reuse_q=True)``, runs once there with the launch
+   counts at zero around it, and its words must equal K1's;
 4. the first main path: a 1,000,000-row Rockstar-style catalog through
    ``text_to_minh --device``, byte-compared with the file of the
    reference's host converter, every float column read back on the card
    with ``read_floats`` in the none, midpoint and uniform modes and the
    ``int`` columns with ``read_ints``, bitwise equal to the host reader.
-   Every kernel must have been launched by this phase.  Before it, K1 to
-   K4 are checked against their plain versions, bitwise, and timed at the
+   K1 to K4 must have been launched by this phase.  Before it, K1 to K4
+   are checked against their plain versions, bitwise, and timed at the
    shapes this phase gives them (one block of each column);
 5. the boundary path: a second 1,000,000-row catalog with ``int`` IDs
    above 2^53 through ``text_to_minh --device`` (byte-compared as in 4)
@@ -31,20 +39,34 @@ Phases, each of which raises at its first failure:
    (``uniform`` dither); every column of the boundary file read back on
    the card, bitwise equal to the host reader, and ``inspect_minh
    --device`` printing what the reference's host ``inspect_minh`` prints.
-   Every kernel must have been launched by this phase.  Before it, K1 to
-   K4 are checked and timed as in 4 at this phase's shapes: K1 and K3 on
+   K1 to K4 must have been launched by this phase.  Before it, K1 to K4
+   are checked and timed as in 4 at this phase's shapes: K1 and K3 on
    one column of 512 ragged cells, K2 and K4 on a bucket of cells of one
-   length.
+   length;
+6. the snapshot path: an LGadget-2 fileset of 256^3 particles (L 250,
+   lattice positions with Gaussian displacements and collapsed clusters;
+   Gaussian velocities) through ``convert_snapshot to_minp --device`` at
+   2 file cells and 8 sub-cells (16 files of 2^21 particles, 3 x 512
+   blocks of 4,096 each), every file byte-compared with the reference's
+   host converter's; every file read back on the card with
+   ``read_vectors`` in ``uniform``, one x and one v file also in ``none``
+   and ``midpoint``, bitwise equal to the host reader, and the positions
+   and velocities of one file cell within dx and dv of the source.  K1
+   and K2 must have been launched by this phase.  Before it, K1 and K2
+   are checked and timed at its shapes (one axis of a file: 512 blocks
+   of 4,096; a width bucket of them).
 
-Phases 4 and 5 each start the launch counts at zero and read them at
-their end.  The last three lines are the nvidia-smi line, a JSON line
-with each kernel's numbers (launches: the sum over phases 4 and 5), and
-``{"ok": true, "device": ...}``.  Without a CUDA device, or outside a
-checkout of the repository, it fails before printing any of them.  Files
-go to ``build/chip_smoke/`` in the checkout.
+The runs of phases 4, 5 and 6 and of K5's path in phase 3 each start the
+launch counts at zero and read them at their end.  The last three lines
+are the nvidia-smi line, a JSON line with each kernel's numbers
+(launches: the sum over those four runs), and ``{"ok": true, "device":
+...}``.  Without a CUDA device, or outside a checkout of the repository,
+it fails before printing any of them.  Files go to ``build/chip_smoke/``
+in the checkout.
 
 The port reuses the reference package's host layers that touch no device
-(the minnow container, the minh format, text ingest); the script checks
+(the minnow container, the minh and minp formats, text and snapshot
+ingest); the script checks
 at the end that no jax module and none of the reference's device modules
 were imported.
 """
@@ -64,14 +86,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 # the reference's host CLIs and format modules import no jax
+from minnow_tpu.cli import convert_snapshot as ref_convert_snapshot  # noqa
 from minnow_tpu.cli import inspect_minh as ref_inspect_minh  # noqa: E402
 from minnow_tpu.cli import minh_to_bnd as ref_minh_to_bnd  # noqa: E402
 from minnow_tpu.cli import text_to_minh as ref_text_to_minh  # noqa: E402
-from minnow_tpu.formats import minh  # noqa: E402
+from minnow_tpu.core import spec  # noqa: E402
+from minnow_tpu.formats import minh, minp  # noqa: E402
+from minnow_tpu.ingest import lgadget2, snapshot  # noqa: E402
 from minnow_tpu.utils.profiling import StageTimer  # noqa: E402
-from minnow_torch.cli import inspect_minh, minh_to_bnd  # noqa: E402
-from minnow_torch.cli import text_to_minh  # noqa: E402
-from minnow_torch.formats import minh_device  # noqa: E402
+from minnow_torch.cli import convert_snapshot, inspect_minh  # noqa: E402
+from minnow_torch.cli import minh_to_bnd, text_to_minh  # noqa: E402
+from minnow_torch.formats import minh_device, minp_device  # noqa: E402
 from minnow_torch.ops import _build, bitpack, codec, decode  # noqa: E402
 from minnow_torch.ops import encode  # noqa: E402
 from minnow_torch.utils.device import (card_info, cuda_device,  # noqa: E402
@@ -82,7 +107,11 @@ FLAGSHIP = (4096, 1 << 17)     # blocks x elements: the JAX bench's shape
 CHUNK = 256                    # blocks per plain-version chunk
 ROWS = 1_000_000               # catalog rows of the main paths
 CELLS, BOUNDARY = 8, 5.0       # minh_to_bnd of phase 5: 512 cells at L 250
-KERNELS = ("K1", "K2", "K3", "K4")
+KERNELS = ("K1", "K2", "K3", "K4", "K5")
+# phase 6: an n_side^3-particle snapshot in a box of side L, converted at
+# file_cells 2 and sub_cells 8 with position and velocity steps dx, dv
+SNAP_SIDE, SNAP_L, SNAP_FILES = 256, 250.0, 8
+FILE_CELLS, SUB_CELLS, SNAP_DX, SNAP_DV = 2, 8, 0.001, 1.0
 
 
 def log(*args):
@@ -263,24 +292,216 @@ def check_k4(dev, rng):
     return 0
 
 
+def wide_batch(rng, n):
+    """Two non-periodic blocks of width 32 (pixels from -2^31 + 128 to
+    2^31 - 128 at dx = 1), the second ragged."""
+    lo, hi = -(1 << 31) + 128, (1 << 31) - 128
+    x = np.floor(rng.uniform(lo, hi, (2, n))).astype(np.float32)
+    x[:, :2] = (lo, hi)
+    return x, np.zeros(2), np.full(2, float(1 << 30)), np.full(2, 1 << 30), \
+        np.zeros(2, bool), np.array([n, n - 7], np.int64)
+
+
+def check_k5(dev, rng):
+    """The stats launch storing pixels, and K5 packing them, against their
+    plain versions; K5's words also against K1's pack for the same plan
+    and the stats against K1's stats without pixels."""
+    widths, err = set(), 0
+    n = 3001
+    batches = [k1_batch(rng, k, n) for k in range(1, 32)]
+    batches += [k1_position_batch(rng, n), wide_batch(rng, n)]
+    for x, low, high, pixels, periodic, lens in batches:
+        params = codec.block_params(low, high, pixels, periodic, dev)
+        xt = torch.from_numpy(x).to(dev)
+        lt = torch.from_numpy(lens).to(dev)
+        q = torch.zeros(x.shape, dtype=torch.int32, device=dev)
+        q_plain = q.clone()
+        stats = encode.float_stats(xt, params, lt, q_out=q)
+        err = max(err, int_err(stats, encode.float_stats(xt, params, lt)),
+                  int_err(stats, encode.float_stats_plain(
+                      xt, params, lt, q_out=q_plain)),
+                  int_err(q, q_plain))
+        plan = encode.plan_float(stats, params, lt)
+        words = encode.pack_float_q(q, params, lt, plan)
+        err = max(err, int_err(words, encode.pack_float_q_plain(
+            q, params, lt, plan)),
+            int_err(words, encode.pack_float(xt, params, lt, plan)))
+        widths.update(int(b) for b in plan.bits[plan.valid])
+    missing = set(range(1, 33)) - widths
+    if err or missing:
+        raise AssertionError("K5 sweep: max err %d, widths not seen %s"
+                             % (err, sorted(missing)))
+    log("K5 sweep: widths 1..32 at n=%d, the stored pixels and K5's words "
+        "bitwise equal to the plain versions, K5's words to K1's pack"
+        % n)
+    return err
+
+
+def check_tile_entries(dev, rng):
+    """The TPU's per-tile kernels on their counterparts, at the JAX
+    package's test shapes: B9 on K2 (5 x 4,096, 18 bits, none and
+    midpoint), B11 on K3 (``pack_batch``, 8 x 2,048, widths 1..32, values
+    beyond each width) against its plain version and ``spec.pack_bits``,
+    and B10 on K4 (zero minimums) reading B11's words back.  Each entry
+    is timed at 18 bits beside its plain version."""
+    t = []
+    b, n, bits = 5, 4096, 18
+    vals = rng.integers(0, 250000, (b, n), dtype=np.uint64)
+    words = np.stack([bitpack.bytes_to_words(spec.pack_bits(v, bits), bits,
+                                             n) for v in vals])
+    low = rng.uniform(-10, 0, b)
+    params = codec.block_params(low, low + rng.uniform(100, 300, b),
+                                np.full(b, 250000), np.array([1, 1, 0, 1, 0],
+                                                             bool), dev)
+    col = (torch.from_numpy(words.view(np.int32)).to(dev),
+           torch.from_numpy(rng.integers(-3, 3, b)).to(dev), params, bits, n)
+    err = 0.0
+    for mode in ("none", "midpoint"):
+        err = max(err, float_err(decode.decode_float_group(*col, mode),
+                                 decode.decode_float_plain(*col, mode)))
+        t += [("B9 %s" % mode,
+               time_ms(lambda: decode.decode_float_group(*col, mode))),
+              ("plain", time_ms(lambda: decode.decode_float_plain(*col,
+                                                                    mode)))]
+
+    b, n = 8, 2048
+    x = torch.from_numpy(rng.integers(0, 1 << 32, (b, n))).to(dev)
+    zeros = torch.zeros(b, dtype=torch.int64, device=dev)
+    for width in range(1, 33):
+        got = encode.pack_batch(x, width)
+        host = x.cpu().numpy().astype(np.uint64) & np.uint64(
+            (1 << width) - 1)
+        if int_err(got, encode.pack_batch_plain(x, width)) or any(
+                bitpack.words_to_bytes(got[i].cpu().numpy(), width, n)
+                != spec.pack_bits(host[i], width) for i in range(b)):
+            raise AssertionError("B11 pack_batch at %d bits differs from "
+                                 "its plain version or spec" % width)
+        back = decode.decode_int_group(got, zeros, width, n)
+        same_ints(back, decode.decode_int_plain(got, zeros, width, n),
+                  "B10 at %d bits" % width)
+        same_ints(back, torch.from_numpy(host.view(np.int64)).to(dev),
+                  "B10 round trip at %d bits" % width)
+    words = encode.pack_batch(x, bits)
+    t += [("B11 pack_batch", time_ms(lambda: encode.pack_batch(x, bits))),
+          ("plain", time_ms(lambda: encode.pack_batch_plain(x, bits))),
+          ("B10 decode_int_group",
+           time_ms(lambda: decode.decode_int_group(words, zeros, bits, n))),
+          ("plain",
+           time_ms(lambda: decode.decode_int_plain(words, zeros, bits, n)))]
+    log("B9 on K2: decode_float_group (5, 4096) at 18 bits, none and "
+        "midpoint, bitwise equal to the plain version (|err| %g); B11 on "
+        "K3: pack_batch (8, 2048) at widths 1..32 bitwise equal to its "
+        "plain version and to spec.pack_bits; B10 on K4: decode_int_group "
+        "with zero minimums gives B11's masked input back at every width"
+        % err)
+    log("B9/B10/B11 entries at 18 bits, ms (CUDA events, median of 7; each "
+        "'plain' is the plain version of the entry before it): %s"
+        % ", ".join("%s %.4f" % kv for kv in t))
+
+
 def reset_counts():
-    encode.K1_LAUNCHES = encode.K3_LAUNCHES = 0
+    encode.K1_LAUNCHES = encode.K3_LAUNCHES = encode.K5_LAUNCHES = 0
     decode.K2_LAUNCHES = decode.K4_LAUNCHES = 0
 
 
 def counts():
     return {"K1": encode.K1_LAUNCHES, "K2": decode.K2_LAUNCHES,
-            "K3": encode.K3_LAUNCHES, "K4": decode.K4_LAUNCHES}
+            "K3": encode.K3_LAUNCHES, "K4": decode.K4_LAUNCHES,
+            "K5": encode.K5_LAUNCHES}
 
 
 def chunks(b):
     return [slice(i, min(i + CHUNK, b)) for i in range(0, b, CHUNK)]
 
 
+def chunk_plan(plan, s, row):
+    """The plan of blocks ``s`` of a batch whose streams are all ``row``
+    words long, as a batch of its own."""
+    return plan._replace(mins=plan.mins[s], maxd=plan.maxd[s],
+                         bits=plan.bits[s], valid=plan.valid[s], m=plan.m[s],
+                         offsets=plan.offsets[s] - plan.offsets[s.start],
+                         total=int(row * (s.stop - s.start)))
+
+
+def k5_flagship(x, params, lens, words, plan, results):
+    """At 4096 x 2^17, 18 bits, K1's ``words`` and ``plan`` given: K1's
+    stats and pack launches, the stats launch storing pixels, and K5,
+    each timed alone; then K5's path, ``encode_float_group(reuse_q=True)``,
+    once with the launch counts at zero around it (its words must be
+    K1's), timed, and beside it the plain versions of K5 and of the whole
+    path, which must give K1's words too.  Returns that run's counts."""
+    b, n = x.shape
+    row = int(plan.offsets[1])
+    gb = b * n * 4 / 1e9
+    q = torch.empty((b, n), dtype=torch.int32, device=x.device)
+    t = {"K1 stats": time_ms(lambda: encode.float_stats(x, params, lens)),
+         "K1 pack": time_ms(lambda: encode.pack_float(x, params, lens,
+                                                      plan)),
+         "stats storing pixels": time_ms(
+             lambda: encode.float_stats(x, params, lens, q_out=q)),
+         "K5": time_ms(lambda: encode.pack_float_q(q, params, lens, plan))}
+    err = int_err(encode.pack_float_q(q, params, lens, plan), words)
+
+    reset_counts()
+    words_q, plan_q = encode.encode_float_group(x, params, lens,
+                                                reuse_q=True)
+    path = counts()
+    err = max(err, int_err(words_q, words))
+    if err or not (np.array_equal(plan_q.bits, plan.bits)
+                   and np.array_equal(plan_q.mins, plan.mins)):
+        raise AssertionError("K5 flagship: words or plan differ from K1's")
+    del words_q
+    t["reuse_q call"] = time_ms(
+        lambda: encode.encode_float_group(x, params, lens, reuse_q=True))
+    t["K1 call"] = results["K1"]["ms"]
+
+    def plain_k5(check):
+        e = 0
+        for s in chunks(b):
+            p = codec.BlockParams(*(v[s] for v in params))
+            w = encode.pack_float_q_plain(q[s], p, lens[s],
+                                          chunk_plan(plan, s, row))
+            if check:
+                e = max(e, int_err(w, words[s.start * row:s.stop * row]))
+        return e
+
+    def plain_path(check):
+        e = 0
+        for s in chunks(b):
+            p = codec.BlockParams(*(v[s] for v in params))
+            qs = torch.empty((s.stop - s.start, n), dtype=torch.int32,
+                             device=x.device)
+            st = encode.float_stats_plain(x[s], p, lens[s], q_out=qs)
+            w = encode.pack_float_q_plain(qs, p, lens[s],
+                                          encode.plan_float(st, p, lens[s]))
+            if check:
+                e = max(e, int_err(w, words[s.start * row:s.stop * row]))
+        return e
+
+    err = max(err, plain_k5(True), plain_path(True))
+    if err:
+        raise AssertionError("K5 flagship: plain versions differ (%d)" % err)
+    t["K5 plain"] = time_ms(lambda: plain_k5(False), reps=3, warmup=1)
+    t["reuse_q call plain"] = time_ms(lambda: plain_path(False), reps=3,
+                                      warmup=1)
+    del q
+    torch.cuda.empty_cache()
+    results["K5"].update(ms=t["K5"], plain_ms=t["K5 plain"],
+                         max_abs_err=max(results["K5"]["max_abs_err"], err))
+    log("K5 flagship %dx%d 18 bits, ms (CUDA events, median of 7; plain "
+        "median of 3): %s; GB/s of f32: K1 call %.1f, reuse_q call %.1f; "
+        "K5's words, the reuse_q path's and both plain versions' bitwise "
+        "equal to K1's; the reuse_q run launched %s"
+        % (b, n, ", ".join("%s %.3f" % kv for kv in t.items()),
+           gb / t["K1 call"] * 1e3, gb / t["reuse_q call"] * 1e3, path))
+    return path
+
+
 def flagship(dev, results):
     """Each kernel at 4096 x 2^17, 18 bits: kernel vs plain, bitwise, and
     their times.  The plain versions run in chunks of blocks (their int64
-    temporaries would not fit at once)."""
+    temporaries would not fit at once).  Returns the launch counts of the
+    run of K5's path."""
     b, n = FLAGSHIP
     gb = b * n * 4 / 1e9
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -319,6 +540,7 @@ def flagship(dev, results):
     log("K1 flagship %dx%d 18 bits: kernel %.3f ms (%.1f GB/s of f32), "
         "plain %.3f ms (%.1f GB/s); words bitwise equal"
         % (b, n, ms, gb / ms * 1e3, plain_ms, gb / plain_ms * 1e3))
+    reuse_path = k5_flagship(x, params, lens, words, plan, results)
 
     w2d = words.view(b, row)
     mins = torch.from_numpy(plan.mins).to(dev)
@@ -363,10 +585,8 @@ def flagship(dev, results):
         raise AssertionError("K3 flagship: widths %s" % set(plan.bits))
     err3 = 0
     for s in chunks(b):
-        pl = plan._replace(mins=plan.mins[s], bits=plan.bits[s],
-                           offsets=plan.offsets[s] - plan.offsets[s.start],
-                           total=int(row * (s.stop - s.start)))
-        w = encode.delta_pack_int_plain(xi[s], lens[s], pl)
+        w = encode.delta_pack_int_plain(xi[s], lens[s],
+                                        chunk_plan(plan, s, row))
         err3 = max(err3, int_err(w, words[s.start * row:s.stop * row]))
     if err3:
         raise AssertionError("K3 flagship: words differ (%d)" % err3)
@@ -374,11 +594,8 @@ def flagship(dev, results):
 
     def plain_pack():
         for s in chunks(b):
-            pl = plan._replace(mins=plan.mins[s], bits=plan.bits[s],
-                               offsets=plan.offsets[s]
-                               - plan.offsets[s.start],
-                               total=int(row * (s.stop - s.start)))
-            encode.delta_pack_int_plain(xi[s], lens[s], pl)
+            encode.delta_pack_int_plain(xi[s], lens[s],
+                                        chunk_plan(plan, s, row))
 
     plain_ms = time_ms(plain_pack, reps=3, warmup=1)
     gb8 = b * n * 8 / 1e9
@@ -404,6 +621,7 @@ def flagship(dev, results):
     k4_flagship(xw, words.view(b, plan.offsets[1]), plan.mins, 54, results)
     del xw, words
     torch.cuda.empty_cache()
+    return reuse_path
 
 
 def k4_flagship(x, w2d, mins_np, bits, results):
@@ -631,7 +849,7 @@ def main_path(dev):
     launches = counts()
     log("main path launches: %s; positions within %.6g of the source"
         % (launches, dx_err))
-    need_all(launches, "the main path")
+    need(launches, KERNELS[:4], "the main path")
 
     # stage breakdown of one more device conversion (after the counts)
     dev_stages = {}
@@ -717,8 +935,9 @@ def check_read_ints(fname, dev):
     return {w for ws in widths.values() for w in ws}
 
 
-def need_all(launches, what):
-    missing = [k for k, v in launches.items() if v < 1]
+def need(launches, kernels, what):
+    """Raise unless each of ``kernels`` was launched."""
+    missing = [k for k in kernels if launches[k] < 1]
     if missing:
         raise AssertionError("kernels %s never launched: %s"
                              % (what, missing))
@@ -935,10 +1154,209 @@ def boundary_path(dev):
     log("boundary path launches: %s; K4 widths of the source file %s; "
         "%.3f s in all"
         % (launches, sorted(widths), time.perf_counter() - t_start))
-    need_all(launches, "the boundary path")
+    need(launches, KERNELS[:4], "the boundary path")
     if not (min(widths) <= 32 < max(widths)):
         raise AssertionError("K4 ran at widths %s: not both <= 32 and > 32"
                              % sorted(widths))
+    return launches
+
+
+# -- phase 6: the snapshot path -----------------------------------------------
+
+
+def write_snapshot(d, n_side, l, files, seed=2026):
+    """An LGadget-2 fileset of ``n_side^3`` particles in ``files`` files,
+    in random order.  A particle sits at its Lagrangian lattice site plus
+    a Gaussian displacement (sigma 1), except in 5 % of the 16^3-site
+    patches (a sub-cell of phase 6), whose particles collapse to a
+    Gaussian cluster (sigma 0.5) at the patch's centre; positions wrap
+    into [0, l).  Velocities are Gaussian, sigma 300.  Returns the source
+    positions and velocities by Lagrangian ID."""
+    rng = np.random.default_rng(seed)
+    n = n_side ** 3
+    side = l / n_side
+    lag = np.arange(n)
+    site = np.stack([lag % n_side, lag // n_side % n_side,
+                     lag // (n_side * n_side)], axis=1)
+    pos = (site + 0.5) * side + rng.normal(0, 1.0, (n, 3))
+    patch = site // 16
+    p_side = n_side // 16
+    pid = patch[:, 0] + p_side * (patch[:, 1] + p_side * patch[:, 2])
+    cluster = rng.random(p_side ** 3) < 0.05
+    inside = cluster[pid]
+    centre = (patch[inside] + 0.5) * 16 * side
+    pos[inside] = centre + rng.normal(0, 0.5, (int(inside.sum()), 3))
+    pos = np.mod(pos, l).astype(np.float32)
+    vel = rng.normal(0, 300, (n, 3)).astype(np.float32)
+    hd = minp.Header(z=0.0, scale=1.0, omega_m=0.3, omega_l=0.7, h100=0.7,
+                     l=l, n_side=n_side, n_total=n)
+    snapshot.calc_uniform_mass(hd)
+    order = np.array_split(rng.permutation(n), files)
+    snap = snapshot.MockSnapshot(hd, [pos[o] for o in order],
+                                 [vel[o] for o in order],
+                                 [o + 1 for o in order])
+    gh = lgadget2.LGadget2Header(time=1.0, box_size=l, omega0=0.3,
+                                 omega_lambda=0.7, hubble_param=0.7,
+                                 n_part_total=(0, n, 0, 0, 0, 0),
+                                 num_files=files)
+    lgadget2.write_lgadget2(d, "snap_%03d.dat", snap, gh)
+    return pos, vel
+
+
+def check_snapshot_shapes(dev, gadget):
+    """K1 and K2 against their plain versions at the shapes phase 6 gives
+    them, and timed there: K1 on one axis of one file (512 sub-cell
+    blocks of 4,096, as ``minp.Writer`` batches them), positions and
+    velocities; K2 on its widest bucket of blocks of one width, in the
+    three modes.  The blocks are the converter's own (``snapshot.Grid``
+    of the fileset)."""
+    grid = snapshot.Grid(lgadget2.LGadget2Snapshot(gadget), FILE_CELLS)
+    t = []
+    for kind, vec, dx, periodic in (("x", grid.read_x(0), SNAP_DX, True),
+                                    ("v", grid.read_v(0), SNAP_DV, False)):
+        blocks = minp.split_sub_cells(vec, SUB_CELLS)[:, :, 0]
+        b, n = blocks.shape
+        if periodic:
+            lo, hi = np.float32(0), np.float32(SNAP_L)
+        else:
+            lo, hi = blocks.min(), blocks.max()
+            hi = np.nextafter(hi, 2 * hi).astype(np.float32)
+        pixels = spec.float_group_pixels(lo, hi, dx)
+        # minp.Writer's encoder call keeps the periodic default
+        params = codec.block_params(np.full(b, lo), np.full(b, hi),
+                                    np.full(b, pixels), np.ones(b, bool),
+                                    dev)
+        xt = torch.from_numpy(np.ascontiguousarray(blocks)).to(dev)
+        lens = torch.full((b,), n, dtype=torch.int64, device=dev)
+        stats = encode.float_stats(xt, params, lens)
+        err = int_err(stats, encode.float_stats_plain(xt, params, lens))
+        plan = encode.plan_float(stats, params, lens)
+        words = encode.pack_float(xt, params, lens, plan)
+        err = max(err, int_err(words, encode.pack_float_plain(
+            xt, params, lens, plan)))
+        if err:
+            raise AssertionError("K1 at phase 6's shape, %s: max err %d"
+                                 % (kind, err))
+        widths, per = np.unique(plan.bits[plan.valid], return_counts=True)
+        width = int(widths[per.argmax()])
+        ids = np.nonzero(plan.valid & (plan.bits == width))[0]
+        nw = bitpack.words_per_block(width, n)
+        col = (torch.stack([words[int(plan.offsets[i]):
+                                  int(plan.offsets[i]) + nw] for i in ids]),
+               torch.from_numpy(plan.mins[ids]).to(dev),
+               codec.BlockParams(*(v[torch.from_numpy(ids).to(dev)]
+                                   for v in params)), width, n)
+        keys = codec.dither_keys(ids, 0, dev)
+        for mode in codec.DITHER_MODES:
+            float_err(decode.decode_float_group(*col, mode, *keys),
+                      decode.decode_float_plain(*col, mode, *keys))
+
+        def plain_enc():
+            st = encode.float_stats_plain(xt, params, lens)
+            encode.pack_float_plain(xt, params, lens,
+                                    encode.plan_float(st, params, lens))
+
+        t += [("K1 call, %s" % kind,
+               time_ms(lambda: encode.encode_float_group(xt, params, lens))),
+              ("plain", time_ms(plain_enc, reps=3, warmup=1)),
+              ("K2 uniform, (%d, %d) %s at %d bits" % (len(ids), n, kind,
+                                                       width),
+               time_ms(lambda: decode.decode_float_group(*col, "uniform",
+                                                         *keys))),
+              ("plain", time_ms(lambda: decode.decode_float_plain(
+                  *col, "uniform", *keys)))]
+        log("snapshot shapes, %s: K1 (%d, %d), widths %s (blocks %s), K2 "
+            "on the %d-bit bucket in three modes: bitwise equal to the plain "
+            "versions" % (kind, b, n, widths.tolist(), per.tolist(), width))
+    log("snapshot shapes, ms (CUDA events, median of 7; the plain version "
+        "of K1 median of 3; each 'plain' is the plain version of the entry "
+        "before it): %s" % ", ".join("%s %.4f" % kv for kv in t))
+
+
+def snapshot_path(dev):
+    """Phase 6: a 256^3-particle LGadget-2 snapshot to minp with
+    ``convert_snapshot --device``, byte-compared with the reference's host
+    converter, and read back on the card with ``read_vectors``, bitwise
+    equal to the host reader and within dx, dv of the source."""
+    work = os.path.join(WORK, "snapshot")
+    gadget, dev_dir, host_dir = (os.path.join(work, d)
+                                 for d in ("gadget", "device", "host"))
+    for d in (gadget, dev_dir, host_dir):
+        os.makedirs(d)
+    t0 = time.perf_counter()
+    pos, vel = write_snapshot(gadget, SNAP_SIDE, SNAP_L, SNAP_FILES)
+    log("snapshot path: %d^3 particles in %d LGadget-2 files written in "
+        "%.2f s" % (SNAP_SIDE, SNAP_FILES, time.perf_counter() - t0))
+    check_snapshot_shapes(dev, gadget)
+
+    # the counts start at zero here: this path must launch K1 and K2
+    reset_counts()
+    t_start = time.perf_counter()
+    args = [str(a) for a in (FILE_CELLS, SUB_CELLS, SNAP_DX, SNAP_DV)]
+    t0 = time.perf_counter()
+    convert_snapshot.main(["to_minp", gadget, dev_dir, *args, "--device"])
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_convert_snapshot.main(["to_minp", gadget, host_dir, *args])
+    t_host = time.perf_counter() - t0
+    names = sorted(os.listdir(host_dir))
+    if sorted(os.listdir(dev_dir)) != names or len(names) != \
+            2 * FILE_CELLS ** 3:
+        raise AssertionError("to_minp wrote %s and %s"
+                             % (sorted(os.listdir(dev_dir)), names))
+    size = sum(same_file(os.path.join(dev_dir, f), os.path.join(host_dir, f),
+                         "convert_snapshot --device, %s" % f) for f in names)
+    log("convert_snapshot to_minp --device: %.3f s; reference host "
+        "converter: %.3f s; %d files byte-identical (%d bytes)"
+        % (t_dev, t_host, len(names), size))
+
+    reads = []  # (mode, seconds on the card, seconds on the host)
+    for f in names:
+        modes = ["uniform"]
+        if f in ("x_0.minp", "v_0.minp"):
+            modes += ["none", "midpoint"]
+        for mode in modes:
+            r = minp.open(os.path.join(dev_dir, f), dither=mode, seed=5)
+            try:
+                t0 = time.perf_counter()
+                got = minp_device.read_vectors(r, dev)
+                torch.cuda.synchronize()
+                t_read = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                want = r.vectors()
+                t_host_read = time.perf_counter() - t0
+            finally:
+                r.close()
+            got = got.cpu().numpy()
+            if got.shape != want.shape or not np.array_equal(
+                    got.view(np.int32), want.view(np.int32)):
+                raise AssertionError("read_vectors(%s) differs from the host "
+                                     "reader in mode %s" % (f, mode))
+            reads.append((mode, t_read, t_host_read))
+            if f in ("x_0.minp", "v_0.minp") and mode == "uniform":
+                src = (pos if f[0] == "x" else vel)[
+                    minp.lagrangian_ids(minp.Cell(0, FILE_CELLS, SUB_CELLS),
+                                        SNAP_SIDE)]
+                d = np.abs(got - src)
+                if f[0] == "x":
+                    d = np.minimum(d, SNAP_L - d)
+                step = SNAP_DX if f[0] == "x" else SNAP_DV
+                if not (np.isfinite(got).all() and d.max() <= 2 * step):
+                    raise AssertionError("%s read back %g from the source"
+                                         % (f, d.max()))
+                log("%s: %d vectors within %.6g of the source (step %g)"
+                    % (f, len(got), d.max(), step))
+    for mode in ("uniform", "none", "midpoint"):
+        ts = [(a, b) for m, a, b in reads if m == mode]
+        log("read_vectors %s: %d files on the card in %.3f s, host reader "
+            "%.3f s; bitwise equal"
+            % (mode, len(ts), sum(a for a, _ in ts), sum(b for _, b in ts)))
+    launches = counts()
+    log("snapshot path launches: %s; %.3f s in all"
+        % (launches, time.perf_counter() - t_start))
+    need(launches, ("K1", "K2"), "the snapshot path")
+    shutil.rmtree(work)
     return launches
 
 
@@ -967,7 +1385,10 @@ def main():
     results["K2"]["max_abs_err"] = check_k2(dev, rng)
     results["K3"]["max_abs_err"] = check_k3(dev, rng)
     results["K4"]["max_abs_err"] = check_k4(dev, rng)
-    flagship(dev, results)
+    results["K5"]["max_abs_err"] = check_k5(dev, rng)
+    check_tile_entries(dev, rng)
+    reuse_path = flagship(dev, results)
+    need(reuse_path, ("K1", "K5"), "the reuse_q path")
 
     t0 = time.perf_counter()
     first = main_path(dev)
@@ -975,26 +1396,35 @@ def main():
     t0 = time.perf_counter()
     second = boundary_path(dev)
     log("phase 5: %.1f s" % (time.perf_counter() - t0))
-    launches = {k: first[k] + second[k] for k in KERNELS}
+    t0 = time.perf_counter()
+    third = snapshot_path(dev)
+    log("phase 6: %.1f s" % (time.perf_counter() - t0))
+    runs = (reuse_path, first, second, third)
+    launches = {k: sum(run[k] for run in runs) for k in KERNELS}
 
     banned = [m for m in sys.modules
               if m == "jax" or m.startswith(("jax.", "jaxlib"))
               or m.startswith(("minnow_tpu.ops", "minnow_tpu.parallel",
                                "minnow_tpu.formats.device_common",
-                               "minnow_tpu.formats.minh_device"))]
+                               "minnow_tpu.formats.minh_device",
+                               "minnow_tpu.formats.minp_device"))]
     if banned:
         raise AssertionError("imported: %s" % banned)
     log("total %.1f s; no jax and no reference device module imported"
         % (time.perf_counter() - t_start))
 
     sources = {"K1": ("encode_float", "minnow_torch/csrc/encode_float.cu",
-                      "minnow_tpu/ops/pallas_encode.py:1045"),
+                      "minnow_tpu/ops/pallas_encode.py:1045 + :714 + :388"),
                "K2": ("decode_float", "minnow_torch/csrc/decode_float.cu",
-                      "minnow_tpu/ops/pallas_codec.py:526"),
+                      "minnow_tpu/ops/pallas_codec.py:526 + :252"),
                "K3": ("pack_int", "minnow_torch/csrc/pack_int.cu",
-                      "minnow_tpu/ops/pallas_encode.py:949"),
+                      "minnow_tpu/ops/pallas_encode.py:949 + "
+                      "minnow_tpu/ops/pallas_pack.py:82"),
                "K4": ("unpack_int", "minnow_torch/csrc/unpack_int.cu",
-                      "minnow_tpu/ops/pallas_codec.py:592 + :641")}
+                      "minnow_tpu/ops/pallas_codec.py:592 + :641 + :689"),
+               "K5": ("encode_float_pack_q",
+                      "minnow_torch/csrc/encode_float.cu",
+                      "minnow_tpu/ops/pallas_encode.py:809")}
     kernels = [dict(name="%s %s" % (k, sources[k][0]), route="cuda",
                     source=sources[k][1], replaces=sources[k][2],
                     launches=launches[k], **results[k]) for k in sources]

@@ -2,8 +2,10 @@
 //
 // Replaces minnow_tpu/ops/pallas_codec.py:526 decode_float_pallas_group
 // (kernels _decode_kernel_group :398 / _decode_kernel_group_multi :418,
-// tail _dequant_tail :140, dither _dither_u_tile :376).  One thread per
-// element i of block b, from the block's row of packed words:
+// tail _dequant_tail :140, dither _dither_u_tile :376), and the per-tile
+// decode decode_float_pallas :252 (kernel _decode_kernel :174), which
+// computes the same for n % 256 == 0 in the none and midpoint modes.  One
+// thread per element i of block b, from the block's row of packed words:
 //
 //   q = delta_i + min                              (wrapping, 64 bits)
 //   periodic blocks: one +-pixels step into [0, pixels)      (spec.bound)

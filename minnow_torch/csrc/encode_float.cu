@@ -1,6 +1,7 @@
-// K1: fused float-block encode for Hopper (sm_90a).
+// K1: fused float-block encode for Hopper (sm_90a), and K5, the pack from
+// a precomputed q.
 //
-// Replaces minnow_tpu/ops/pallas_encode.py:1045 encode_float_pallas_group
+// K1 replaces minnow_tpu/ops/pallas_encode.py:1045 encode_float_pallas_group
 // (kernel _encode_kernel_group :493 / _encode_group_block :514), and with
 // it the two other TPU float encodes of the reference's write path
 // (parallel/pipeline.py:364-379): the big-block pack with a known m and
@@ -25,13 +26,23 @@
 // re-quantizes the elements overlapping its word, recentres, subtracts
 // the minimum and packs (bitstream.cuh, gather form).
 //
-// What bounds it on the H100: device memory.  Per element it reads x
-// twice (8 bytes) and writes bits/8 bytes; the quantizer is a handful of
-// float and integer operations.  The TPU kernel kept q in VMEM between
-// its passes; here the second read of x is the simple first design, and
-// keeping q on chip between the two passes is later work.
+// K5, minnow_encode_float_pack_q, replaces pallas_encode.py:809
+// pack_q_pallas_group (kernel _pack_q_kernel_group :771), the second
+// dispatch of encode_float_pallas_bigblock(reuse_q=True) :855.  The stats
+// launch, given a q buffer, also stores each element's int32 pixel (the
+// TPU's float_block_stats32(return_q=True), ops/codec.py:252); K5 packs
+// those pixels with the same recentring, minimum and layout as K1's pack,
+// so its words equal K1's, without a second quantize.
 //
-// What differs from the TPU kernel: any n >= 1 (no 32*G*8 alignment, no
+// What bounds them on the H100: device memory, and in K1's pack the
+// division.  Per element K1 reads x twice (8 bytes) and writes bits/8
+// bytes; its pack quantizes every element that overlaps a word, about
+// 1 + bits/32 IEEE divisions per element.  The reuse_q pair instead reads
+// x once, writes and reads q (8 bytes) and divides once.  The TPU kernel
+// kept q in VMEM between its passes; keeping it on chip here is later
+// work.
+//
+// What differs from the TPU kernels: any n >= 1 (no 32*G*8 alignment, no
 // static width), a true width per block (so no predicted-width re-encode
 // loop), and IEEE division (__fdiv_rn) in place of the 16-bit-limb magic
 // reciprocal that Mosaic needed.  All float arithmetic is explicitly
@@ -85,9 +96,11 @@ stats_kernel(const float* __restrict__ x, long long n,
              const float* __restrict__ low, const float* __restrict__ dx,
              const int* __restrict__ pixels,
              const unsigned char* __restrict__ periodic,
-             const long long* __restrict__ lens, int* __restrict__ stats) {
+             const long long* __restrict__ lens, int* __restrict__ stats,
+             int* __restrict__ q) {
   const int b = blockIdx.x;
   const float* xb = x + (long long)b * n;
+  int* qb = q ? q + (long long)b * n : nullptr;
   const long long len = lens[b];
   const float lo = low[b], d = dx[b];
   const long long p = pixels[b];
@@ -103,6 +116,7 @@ stats_kernel(const float* __restrict__ x, long long n,
   for (long long i = (long long)blockIdx.y * blockDim.x + threadIdx.x;
        i < len; i += stride) {
     const Pixel r = quantize(xb[i], lo, d);
+    if (qb) qb[i] = r.q;
     if (!r.ok) {
       valid = 0;
       continue;
@@ -136,21 +150,17 @@ stats_kernel(const float* __restrict__ x, long long n,
   if (blockIdx.y == 0 && threadIdx.x == 0 && first.ok) s[kQ0] = first.q;
 }
 
-__global__ void __launch_bounds__(kThreads)
-pack_kernel(const float* __restrict__ x, long long n,
-            const float* __restrict__ low, const float* __restrict__ dx,
-            const int* __restrict__ pixels,
-            const unsigned char* __restrict__ periodic,
-            const long long* __restrict__ m, const long long* __restrict__ mn,
-            const int* __restrict__ bits, const long long* __restrict__ lens,
-            const long long* __restrict__ offsets,
-            unsigned int* __restrict__ words) {
-  const int b = blockIdx.x;
-  const int width = bits[b];
-  if (width == 0) return;
-  const float* xb = x + (long long)b * n;
+// The words of block b: the pixel q_of(i) of each element, recentred
+// (spec.bound(q, m, pixels) for periodic blocks), minus the block minimum,
+// packed at the block's width.  One thread per output word.
+template <class Q>
+__device__ __forceinline__ void pack_block(
+    Q q_of, int b, const int* __restrict__ pixels,
+    const unsigned char* __restrict__ periodic,
+    const long long* __restrict__ m, const long long* __restrict__ mn,
+    int width, const long long* __restrict__ lens,
+    const long long* __restrict__ offsets, unsigned int* __restrict__ words) {
   const long long len = lens[b];
-  const float lo = low[b], d = dx[b];
   const long long p = pixels[b];
   const bool per = periodic[b] != 0;
   const long long mb = m[b], minb = mn[b];
@@ -158,8 +168,8 @@ pack_kernel(const float* __restrict__ x, long long n,
   unsigned int* out = words + offsets[b];
 
   auto value = [&](long long i) -> uint64_t {
-    long long q = quantize(xb[i], lo, d).q;
-    if (per) {  // spec.bound(q, m, pixels)
+    long long q = q_of(i);
+    if (per) {
       if (q < mb) q += p;
       if (q >= mb + p) q -= p;
     }
@@ -174,6 +184,43 @@ pack_kernel(const float* __restrict__ x, long long n,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const float* __restrict__ x, long long n,
+            const float* __restrict__ low, const float* __restrict__ dx,
+            const int* __restrict__ pixels,
+            const unsigned char* __restrict__ periodic,
+            const long long* __restrict__ m, const long long* __restrict__ mn,
+            const int* __restrict__ bits, const long long* __restrict__ lens,
+            const long long* __restrict__ offsets,
+            unsigned int* __restrict__ words) {
+  const int b = blockIdx.x;
+  const int width = bits[b];
+  if (width == 0) return;
+  const float* xb = x + (long long)b * n;
+  const float lo = low[b], d = dx[b];
+  pack_block([&](long long i) -> long long {
+               return quantize(xb[i], lo, d).q;
+             },
+             b, pixels, periodic, m, mn, width, lens, offsets, words);
+}
+
+__global__ void __launch_bounds__(kThreads)
+pack_q_kernel(const int* __restrict__ q, long long n,
+              const int* __restrict__ pixels,
+              const unsigned char* __restrict__ periodic,
+              const long long* __restrict__ m,
+              const long long* __restrict__ mn, const int* __restrict__ bits,
+              const long long* __restrict__ lens,
+              const long long* __restrict__ offsets,
+              unsigned int* __restrict__ words) {
+  const int b = blockIdx.x;
+  const int width = bits[b];
+  if (width == 0) return;
+  const int* qb = q + (long long)b * n;
+  pack_block([&](long long i) -> long long { return qb[i]; }, b, pixels,
+             periodic, m, mn, width, lens, offsets, words);
+}
+
 }  // namespace
 
 // Launch shape of every entry point: grid (B, grid_y) of kThreads
@@ -182,16 +229,19 @@ pack_kernel(const float* __restrict__ x, long long n,
 //
 // x (B, n) float32; low, dx (B,) float32; pixels (B,) int32; periodic (B,)
 // bool; lens (B,) int64 <= n; stats (B, 6) int32, initialised by the
-// caller to (0, INT_MAX, INT_MIN, INT_MAX, INT_MIN, 1).
+// caller to (0, INT_MAX, INT_MIN, INT_MAX, INT_MIN, 1); q (B, n) int32 or
+// null: when given, element i < lens[b] of row b gets its pixel (0 where
+// it is not certified), and the rest of the row is left as it was.
 extern "C" int minnow_encode_float_stats(
     const void* x, long long B, long long n, unsigned int grid_y,
     const void* low, const void* dx, const void* pixels,
-    const void* periodic, const void* lens, void* stats, void* stream) {
+    const void* periodic, const void* lens, void* stats, void* q,
+    void* stream) {
   const dim3 grid((unsigned int)B, grid_y);
   stats_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, n, (const float*)low, (const float*)dx,
       (const int*)pixels, (const unsigned char*)periodic,
-      (const long long*)lens, (int*)stats);
+      (const long long*)lens, (int*)stats, (int*)q);
   return (int)cudaGetLastError();
 }
 
@@ -207,6 +257,22 @@ extern "C" int minnow_encode_float_pack(
   pack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, n, (const float*)low, (const float*)dx,
       (const int*)pixels, (const unsigned char*)periodic,
+      (const long long*)m, (const long long*)mn, (const int*)bits,
+      (const long long*)lens, (const long long*)offsets,
+      (unsigned int*)words);
+  return (int)cudaGetLastError();
+}
+
+// K5: q (B, n) int32 from the stats launch; the other arguments as for
+// minnow_encode_float_pack.
+extern "C" int minnow_encode_float_pack_q(
+    const void* q, long long B, long long n, const void* pixels,
+    const void* periodic, const void* m, const void* mn, const void* bits,
+    const void* lens, const void* offsets, void* words, unsigned int grid_y,
+    void* stream) {
+  const dim3 grid((unsigned int)B, grid_y);
+  pack_q_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)q, n, (const int*)pixels, (const unsigned char*)periodic,
       (const long long*)m, (const long long*)mn, (const int*)bits,
       (const long long*)lens, (const long long*)offsets,
       (unsigned int*)words);

@@ -2,7 +2,9 @@
 //
 // Replaces minnow_tpu/ops/pallas_encode.py:949 pack_int_pallas_group
 // (kernel _pack_int_kernel :910, _pack_tile_planar64 :259), as called by
-// delta_pack_int_pallas :1006.  Per block b of a (B, n) int64 batch and
+// delta_pack_int_pallas :1006, and with zero minimums and one width
+// minnow_tpu/ops/pallas_pack.py:82 pack_batch_pallas (kernel _kernel :44,
+// ops/encode.py pack_batch).  Per block b of a (B, n) int64 batch and
 // its first lens[b] elements (spec.encode_int_block,
 // minnow_tpu/core/spec.py:278): delta = (uint64)(x - min) with wrapping
 // arithmetic, packed at the block's width (1..64).  One thread per output

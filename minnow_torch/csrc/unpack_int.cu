@@ -4,10 +4,11 @@
 // _unpack_kernel_group :466, _unpack_group_tiles :355) for widths 1..32 and
 // :641 unpack_pallas_group64 (kernel _unpack_kernel_group64 :610) for
 // widths 33..64, with the caller's add of the block minimum
-// (minnow_tpu/ops/codec.py:370-388).  CTA (b, y) walks block b's elements
-// at a stride of gridDim.y * kThreads (about UNPACK_PER_THREAD each,
-// ops/decode.py); each element i comes whole from the block's row of
-// packed words:
+// (minnow_tpu/ops/codec.py:370-388); with zero minimums it is also the
+// per-tile raw unpack unpack_pallas :689 (kernel _unpack_kernel :201).
+// CTA (b, y) walks block b's elements at a stride of gridDim.y * kThreads
+// (about UNPACK_PER_THREAD each, ops/decode.py); each element i comes
+// whole from the block's row of packed words:
 //
 //   out = (int64)(delta_i + (uint64)min)             (wrapping, 64 bits)
 //

@@ -1,7 +1,7 @@
 """File formats on the device.
 
-``minh_device`` holds the port's device reads.  The minh format itself
-(writer, reader, column specs) is the reference package's host module
-``minnow_tpu.formats.minh``, which touches no device and imports no jax;
-callers import it from there.
+``minh_device`` and ``minp_device`` hold the port's device reads.  The
+formats themselves (writers, readers, column specs) are the reference
+package's host modules ``minnow_tpu.formats.minh`` and ``.minp``, which
+touch no device and import no jax; callers import them from there.
 """

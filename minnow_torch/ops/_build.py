@@ -1,8 +1,9 @@
 """Build and bind the CUDA kernels in ``minnow_torch/csrc``.
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes -- no PyTorch headers, so a build takes
-seconds.  The library is built on first use, under a file lock, into
+Each source compiles with its own nvcc, all started together, and the
+objects link into one shared library with a plain C interface, loaded
+with ctypes -- no PyTorch headers, so a build takes seconds.  The
+library is built on first use, under a file lock, into
 ``build/minnow_torch/`` at the checkout root, named by a hash of the
 sources and flags, so a changed source builds anew and a stale library is
 never loaded.  A failed build raises with nvcc's output; nothing is
@@ -34,21 +35,24 @@ BUILD_DIR = _PKG.parent / "build" / "minnow_torch"
 # nvcc's default -ftz=false/-prec-div=true keep IEEE division and
 # subnormals (no --use_fast_math)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint
 _SIGNATURES = {
-    # x, B, n, grid_y, low, dx, pixels, periodic, lens, stats, stream
+    # x, B, n, grid_y, low, dx, pixels, periodic, lens, stats, q, stream
     "minnow_encode_float_stats": [_P, _I64, _I64, _U32, _P, _P, _P, _P,
-                                  _P, _P, _P],
+                                  _P, _P, _P, _P],
     # x, B, n, low, dx, pixels, periodic, m, mn, bits, lens, offsets,
     # words, grid_y, stream
     "minnow_encode_float_pack": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _U32, _P],
+    # q, B, n, pixels, periodic, m, mn, bits, lens, offsets, words,
+    # grid_y, stream
+    "minnow_encode_float_pack_q": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _U32, _P],
     # words, B, row_words, n, bits, mins, low, dx, pixels, periodic,
     # mode, k1, k2, out, grid_y, stream
     "minnow_decode_float": [_P, _I64, _I64, _I64, _I32, _P, _P, _P, _P,
@@ -88,17 +92,38 @@ def _key() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run the commands at once; raise with nvcc's output if one fails.
+    Returns their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    try:
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:  # a timeout leaves no compiler running
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed (%d):\n%s\n%s"
+                               % (p.returncode, " ".join(cmd), out))
+    return "".join(outs)
+
+
 def _build(lib_path: Path) -> str:
     tmp = lib_path.with_suffix(".tmp%d" % os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(SRC_DIR.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s\n%s\n%s"
-                           % (res.returncode, " ".join(cmd), res.stdout,
-                              res.stderr))
+    nvcc = _nvcc()
+    srcs = sorted(SRC_DIR.glob("*.cu"))
+    objs = [tmp.with_name("%s.%s.o" % (tmp.name, s.stem)) for s in srcs]
+    log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                for s, o in zip(srcs, objs)])
+    log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, lib_path)
-    return res.stdout + res.stderr
+    return log
 
 
 def load():

@@ -53,7 +53,9 @@ def decode_int_group(words, mins, bits: int, n: int):
     """Decode ``n`` elements of each row of ``words`` (B, W) int32 -- one
     int block stream per row, all at width ``bits`` (0..64) -- to (B, n)
     int64, each its delta plus the row's ``mins`` (B,) int64 (K4 on the
-    card)."""
+    card).  With zero minimums it is the raw unpack of the TPU's per-tile
+    ``unpack_pallas`` (``pallas_codec.py:689``) as well as of its grouped
+    kernels (``:592``, ``:641``)."""
     global K4_LAUNCHES
     b, w = _check_words(words, bits, n)
     expect(mins, "mins", torch.int64, (b,))
@@ -94,7 +96,9 @@ def decode_float_group(words, mins, params: codec.BlockParams, bits: int,
     block stream per row, all at width ``bits`` (0..64) -- to (B, n)
     float32 (K2 on the card).  ``mins`` (B,) int64.  ``dither`` is
     ``none``, ``midpoint`` or ``uniform``; ``uniform`` takes the per-block
-    keys ``k1``, ``k2`` (B,) int32 of ``codec.dither_keys``."""
+    keys ``k1``, ``k2`` (B,) int32 of ``codec.dither_keys``.  It stands
+    for the TPU's grouped decode (``pallas_codec.py:526``) and its
+    per-tile decode ``decode_float_pallas`` (``:252``) alike."""
     global K2_LAUNCHES
     if dither not in codec.DITHER_MODES:
         raise ValueError("unknown dither mode %r" % (dither,))

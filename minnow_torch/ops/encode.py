@@ -1,5 +1,5 @@
-"""Block encode on the device: kernels K1 (float) and K3 (int), each beside
-its plain PyTorch version.
+"""Block encode on the device: kernels K1 (float), K5 (float pack from
+precomputed pixels) and K3 (int), each beside its plain PyTorch version.
 
 A wrapper given CUDA tensors launches its kernel (``csrc/encode_float.cu``,
 ``csrc/pack_int.cu``) or raises; given CPU tensors it runs the plain
@@ -7,7 +7,9 @@ version.  Nothing else chooses between them.
 
 An encode is three steps: per-block stats on the device, a host plan
 (:class:`Plan`: each block's minimum, width and word offset), and the
-pack on the device.  Encoded blocks come back as one flat int32 word
+pack on the device.  A float encode packs with K1's second launch, which
+quantizes x again, or with ``reuse_q`` from the pixels the stats launch
+stored (K5).  Encoded blocks come back as one flat int32 word
 buffer (the uint32 bit patterns) holding each block's stream at its own
 width, back to back at ``plan.offsets`` (``bitpack.block_layout``).
 """
@@ -25,25 +27,31 @@ from ._launch import expect, grid_y, on_card, stream_of
 __all__ = [
     "K1_LAUNCHES",
     "K3_LAUNCHES",
+    "K5_LAUNCHES",
     "Plan",
     "float_stats",
     "float_stats_plain",
     "plan_float",
     "pack_float",
     "pack_float_plain",
+    "pack_float_q",
+    "pack_float_q_plain",
     "encode_float_group",
     "plan_int",
     "delta_pack_int",
     "delta_pack_int_plain",
     "encode_int_group",
+    "pack_batch",
+    "pack_batch_plain",
 ]
 
 # kernel launches made by the wrappers (K1 counts both of its launches)
 K1_LAUNCHES = 0
 K3_LAUNCHES = 0
+K5_LAUNCHES = 0
 
 # items each thread takes: elements in K1's stats launch, output words in
-# the pack launches of K1 and K3.  Fewer, busier CTAs measured faster at
+# the pack launches of K1, K5 and K3.  Fewer, busier CTAs measured faster at
 # 4096 x 2^17 on the H100 (PERF.md, Findings)
 STATS_PER_THREAD = 32
 PACK_PER_THREAD = 8
@@ -80,15 +88,18 @@ def _put(a, dtype, device):
     return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
 
-def _check_float_args(x, params, lens):
-    expect(x, "x", torch.float32, (None, None))
-    b = x.shape[0]
+def _check_params(b, params, lens):
     expect(params.low, "low", torch.float32, (b,))
     expect(params.dx, "dx", torch.float32, (b,))
     expect(params.pixels, "pixels", torch.int32, (b,))
     expect(params.periodic, "periodic", torch.bool, (b,))
     expect(lens, "lens", torch.int64, (b,))
-    return on_card(x, *params, lens)
+
+
+def _check_float_args(x, params, lens, *more):
+    expect(x, "x", torch.float32, (None, None))
+    _check_params(x.shape[0], params, lens)
+    return on_card(x, *params, lens, *more)
 
 
 def _check_lens(lens, n):
@@ -99,18 +110,29 @@ def _check_lens(lens, n):
 # -- K1: float encode ---------------------------------------------------------
 
 
-def float_stats_plain(x, params, lens):
+def float_stats_plain(x, params, lens, q_out=None):
     """Plain version of K1's stats launch (``codec.float_block_stats``)."""
+    if q_out is not None:
+        q, _ = codec.quantize(x, params.low, params.dx)
+        live = torch.arange(x.shape[1], device=x.device)[None, :] \
+            < lens[:, None]
+        q_out.copy_(torch.where(live, q.to(torch.int32), q_out))
     return codec.float_block_stats(x, params, lens)
 
 
-def float_stats(x, params: codec.BlockParams, lens):
+def float_stats(x, params: codec.BlockParams, lens, q_out=None):
     """Per-block stats rows (B, 6) int32 of ``codec.float_block_stats``
     for ``x`` (B, n) float32 over its first ``lens`` elements; K1's first
-    launch on the card."""
+    launch on the card.  Given ``q_out`` (B, n) int32, it also stores each
+    element's pixel there (``codec.quantize``'s q, 0 where not certified),
+    in each row's first ``lens`` places only."""
     global K1_LAUNCHES
-    if not _check_float_args(x, params, lens):
-        return float_stats_plain(x, params, lens)
+    more = []
+    if q_out is not None:
+        expect(q_out, "q_out", torch.int32, tuple(x.shape))
+        more.append(q_out)
+    if not _check_float_args(x, params, lens, *more):
+        return float_stats_plain(x, params, lens, q_out)
     b, n = x.shape
     _check_lens(lens, n)
     stats = codec.stats_init(b, x.device)
@@ -122,7 +144,7 @@ def float_stats(x, params: codec.BlockParams, lens):
             params.low.data_ptr(),
             params.dx.data_ptr(), params.pixels.data_ptr(),
             params.periodic.data_ptr(), lens.data_ptr(), stats.data_ptr(),
-            stream_of(x))
+            None if q_out is None else q_out.data_ptr(), stream_of(x))
     K1_LAUNCHES += 1
     _build.check(err, "encode_float_stats")
     return stats
@@ -138,16 +160,27 @@ def plan_float(stats, params: codec.BlockParams, lens) -> Plan:
     return _plan(mn, maxd, valid, m, host[3].numpy())
 
 
-def pack_float_plain(x, params, lens, plan: Plan):
-    """Plain version of K1's pack launch."""
-    dev = x.device
-    q, _ = codec.quantize(x, params.low, params.dx)
+def pack_float_q_plain(q, params, lens, plan: Plan):
+    """Plain version of K5 (and, from the quantized x, of K1's pack)."""
+    dev = q.device
+    q = q.to(torch.int64)
     p = params.pixels.to(torch.int64)[:, None]
     m = _put(plan.m, np.int64, dev)[:, None]
     q = torch.where(params.periodic[:, None], codec.bound(q, m, p), q)
     return bitpack.pack(q - _put(plan.mins, np.int64, dev)[:, None],
                         _put(plan.bits, np.int64, dev), lens,
                         _put(plan.offsets, np.int64, dev), plan.total)
+
+
+def pack_float_plain(x, params, lens, plan: Plan):
+    """Plain version of K1's pack launch."""
+    q, _ = codec.quantize(x, params.low, params.dx)
+    return pack_float_q_plain(q, params, lens, plan)
+
+
+def _check_plan(plan: Plan, b: int):
+    if plan.bits.size != b or plan.bits.max(initial=0) > 32:
+        raise ValueError("the plan must give B widths in [0, 32]")
 
 
 def pack_float(x, params: codec.BlockParams, lens, plan: Plan):
@@ -159,8 +192,7 @@ def pack_float(x, params: codec.BlockParams, lens, plan: Plan):
         return pack_float_plain(x, params, lens, plan)
     b, n = x.shape
     _check_lens(lens, n)
-    if plan.bits.size != b or plan.bits.max(initial=0) > 32:
-        raise ValueError("the plan must give B widths in [0, 32]")
+    _check_plan(plan, b)
     dev = x.device
     words = torch.empty(plan.total, dtype=torch.int32, device=dev)
     if plan.total == 0:
@@ -180,13 +212,54 @@ def pack_float(x, params: codec.BlockParams, lens, plan: Plan):
     return words
 
 
-def encode_float_group(x, params: codec.BlockParams, lens):
+def pack_float_q(q, params: codec.BlockParams, lens, plan: Plan):
+    """What :func:`pack_float` packs, from the pixels ``q`` (B, n) int32
+    that :func:`float_stats` stored for this plan's x; K5 on the card."""
+    global K5_LAUNCHES
+    expect(q, "q", torch.int32, (None, None))
+    b, n = q.shape
+    _check_params(b, params, lens)
+    if not on_card(q, *params, lens):
+        return pack_float_q_plain(q, params, lens, plan)
+    _check_lens(lens, n)
+    _check_plan(plan, b)
+    dev = q.device
+    words = torch.empty(plan.total, dtype=torch.int32, device=dev)
+    if plan.total == 0:
+        return words
+    m, mn, offsets = (_put(a, np.int64, dev)
+                      for a in (plan.m, plan.mins, plan.offsets))
+    bits = _put(plan.bits, np.int32, dev)
+    with torch.cuda.device(dev):
+        err = _build.load().minnow_encode_float_pack_q(
+            q.data_ptr(), b, n, params.pixels.data_ptr(),
+            params.periodic.data_ptr(), m.data_ptr(), mn.data_ptr(),
+            bits.data_ptr(), lens.data_ptr(), offsets.data_ptr(),
+            words.data_ptr(), grid_y(plan.max_words, PACK_PER_THREAD),
+            stream_of(q))
+    K5_LAUNCHES += 1
+    _build.check(err, "encode_float_pack_q")
+    return words
+
+
+def encode_float_group(x, params: codec.BlockParams, lens,
+                       reuse_q: bool = False):
     """Encode float blocks ``x`` (B, n) float32 over their first ``lens``
     elements: stats launch, host plan, pack launch.  Returns
-    ``(words, plan)``; every valid block has its true width."""
-    stats = float_stats(x, params, lens)
+    ``(words, plan)``; every valid block has its true width.
+
+    With ``reuse_q`` the stats launch also stores each element's pixel
+    in an int32 (B, n) buffer and K5 packs from it, where K1's pack
+    quantizes x again (``encode_float_pallas_bigblock(reuse_q=True)``,
+    ``pallas_encode.py:855``); the words are the same."""
+    if not reuse_q:
+        stats = float_stats(x, params, lens)
+        plan = plan_float(stats, params, lens)
+        return pack_float(x, params, lens, plan), plan
+    q = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    stats = float_stats(x, params, lens, q_out=q)
     plan = plan_float(stats, params, lens)
-    return pack_float(x, params, lens, plan), plan
+    return pack_float_q(q, params, lens, plan), plan
 
 
 # -- K3: int delta pack ---------------------------------------------------------
@@ -251,3 +324,36 @@ def encode_int_group(x, lens):
     _check_int_args(x, lens)
     plan = plan_int(x, lens)
     return delta_pack_int(x, lens, plan), plan
+
+
+def _batch_plan(x, bits: int):
+    """The plan of :func:`pack_batch`: zero minimums, one width, each
+    row's stream ``words_per_block(bits, N)`` long; and the lens."""
+    if not 1 <= bits <= 32:
+        raise ValueError("pack_batch takes widths 1..32, got %d" % bits)
+    expect(x, "x", torch.int64, (None, None))
+    b, n = x.shape
+    nw = bitpack.words_per_block(bits, n)
+    plan = Plan(mins=np.zeros(b, np.int64), maxd=np.zeros(b, np.int64),
+                bits=np.full(b, bits, np.int64), valid=np.ones(b, bool),
+                m=np.zeros(b, np.int64),
+                offsets=np.arange(b, dtype=np.int64) * nw, total=b * nw,
+                max_words=nw)
+    return plan, torch.full((b,), n, dtype=torch.int64, device=x.device)
+
+
+def pack_batch_plain(x, bits: int):
+    """Plain version of :func:`pack_batch` (``delta_pack_int_plain`` on
+    its plan)."""
+    plan, lens = _batch_plan(x, bits)
+    return delta_pack_int_plain(x, lens, plan).view(len(lens), plan.max_words)
+
+
+def pack_batch(x, bits: int):
+    """Pack each row of ``x`` (B, N) -- uint32 values held in int64 --
+    at the one width ``bits`` (1..32), each value masked to its low
+    ``bits`` bits: ``pallas_pack.pack_batch_pallas`` (``pallas_pack.py:82``)
+    on K3, as a delta pack with zero minimums.  Returns the (B,
+    ``words_per_block(bits, N)``) int32 words."""
+    plan, lens = _batch_plan(x, bits)
+    return delta_pack_int(x, lens, plan).view(len(lens), plan.max_words)

@@ -8,7 +8,9 @@ container needs (ref go/group.go:242-255, 312-327).  Float blocks the
 kernel does not certify (non-finite values, pixels beyond int32, or a
 periodic block with pixels outside ``[0, pixels)``) are encoded by the
 normative host encoder ``spec.encode_float_block``, as the reference's
-pipeline does (``pipeline.py:474-487``).
+pipeline does (``pipeline.py:474-487``); with ``clamp_q`` so are the
+valid blocks whose largest pixel reaches ``pixels``, the only pixels
+``clamp_q`` changes.
 """
 
 from __future__ import annotations
@@ -34,6 +36,28 @@ class EncodedBlocks:
     mins: np.ndarray  # (B,) int64
     bits: np.ndarray  # (B,) int64
     lens: np.ndarray  # (B,) int64 valid lengths
+
+    @property
+    def sizes(self) -> np.ndarray:
+        return np.array([len(p) for p in self.payloads], dtype=np.int64)
+
+    @property
+    def offsets(self) -> np.ndarray:
+        """Exclusive prefix sum: byte offset of each block within the
+        group's data region (ref go/block_index.go)."""
+        sizes = self.sizes
+        out = np.zeros_like(sizes)
+        np.cumsum(sizes[:-1], out=out[1:])
+        return out
+
+    def total_bytes(self) -> int:
+        return int(self.sizes.sum())
+
+    def write_to(self, writer) -> None:
+        """Append all blocks to the current group of a core Writer through
+        its pre-encoded path (``Writer.data_encoded``)."""
+        for payload, mn, bits in zip(self.payloads, self.mins, self.bits):
+            writer.data_encoded(payload, int(mn), int(bits))
 
 
 def _payloads(words: np.ndarray, offsets, bits, lens) -> list:
@@ -75,12 +99,15 @@ class BlockEncoder:
         return EncodedBlocks(payloads, plan.mins, plan.bits, lens)
 
     def encode_float_blocks(self, x, low, high, pixels, lens=None,
-                            periodic=True) -> EncodedBlocks:
+                            periodic=True,
+                            clamp_q: bool = False) -> EncodedBlocks:
         """Encode (B, N) float32 blocks (ref go/group.go:312-327).
 
         ``low``/``high``/``pixels``/``periodic`` may be scalars or (B,)
         arrays (per-block quantisation configs, as the multi-column minh
-        layout has)."""
+        layout has).  ``clamp_q`` clamps pixels to ``pixels - 1``
+        (``spec.encode_float_block``), as minp's non-periodic groups
+        ask."""
         x, b, n, lens = self._as_batch(x, lens, np.float32)
         low = np.broadcast_to(np.asarray(low, np.float32), (b,)).copy()
         high = np.broadcast_to(np.asarray(high, np.float32), (b,)).copy()
@@ -93,8 +120,13 @@ class BlockEncoder:
         payloads = _payloads(words.cpu().numpy(), plan.offsets, plan.bits,
                              lens)
         mins, bits = plan.mins.copy(), plan.bits.copy()
-        for i in np.nonzero(~plan.valid)[0]:
+        host = ~plan.valid
+        if clamp_q:
+            # K1 certifies periodic pixels in [0, pixels), which clamp_q
+            # leaves alone; a non-periodic block's largest is mins + maxd
+            host |= ~periodic & (plan.mins + plan.maxd >= pixels)
+        for i in np.nonzero(host)[0]:
             payloads[i], mins[i], bits[i], _ = spec.encode_float_block(
                 x[i, :lens[i]], low[i], high[i], int(pixels[i]),
-                periodic=bool(periodic[i]))
+                periodic=bool(periodic[i]), clamp_q=clamp_q)
         return EncodedBlocks(payloads, mins, bits, lens)

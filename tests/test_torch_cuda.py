@@ -91,6 +91,43 @@ def test_k2_matches_plain_at_every_width(dev, mode):
                                         k1, k2))
 
 
+@pytest.mark.parametrize("n", [1, 999, 70001])
+def test_k5_matches_plain_and_k1(dev, n):
+    """The stats launch's pixels and K5's words against their plain
+    versions, and K5's words against K1's pack for the same plan."""
+    rng = np.random.default_rng(n + 1)
+    x, low, high, pixels, periodic, lens = _float_batch(rng, n)
+    params = codec.block_params(low, high, pixels, periodic, dev)
+    xt, lt = torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev)
+    q = torch.zeros(x.shape, dtype=torch.int32, device=dev)
+    q_plain = q.clone()
+    stats = encode.float_stats(xt, params, lt, q_out=q)
+    _same(stats, encode.float_stats(xt, params, lt))
+    _same(stats, encode.float_stats_plain(xt, params, lt, q_out=q_plain))
+    _same(q, q_plain)
+    plan = encode.plan_float(stats, params, lt)
+    before = encode.K5_LAUNCHES
+    words = encode.pack_float_q(q, params, lt, plan)
+    assert encode.K5_LAUNCHES == before + (1 if plan.total else 0)
+    _same(words, encode.pack_float_q_plain(q, params, lt, plan))
+    _same(words, encode.pack_float(xt, params, lt, plan))
+
+
+def test_pack_batch_matches_plain_and_spec(dev):
+    rng = np.random.default_rng(12)
+    b, n = 3, 777
+    x = rng.integers(0, 1 << 32, (b, n), dtype=np.int64)
+    before = encode.K3_LAUNCHES
+    for bits in range(1, 33):
+        got = encode.pack_batch(torch.from_numpy(x).to(dev), bits).cpu()
+        _same(got, encode.pack_batch(torch.from_numpy(x), bits))
+        for i in range(b):
+            assert bitpack.words_to_bytes(got[i].numpy(), bits, n) == \
+                spec.pack_bits(x[i].astype(np.uint64)
+                               & np.uint64((1 << bits) - 1), bits), bits
+    assert encode.K3_LAUNCHES == before + 32
+
+
 def test_k3_matches_plain_and_spec(dev):
     rng = np.random.default_rng(5)
     n = 777

@@ -1,7 +1,8 @@
 """The port's text_to_minh, end to end on the CPU: the file it writes
 equals the host codec's and the JAX package's --device file byte for
 byte, --device refuses to run without CUDA, and the port (converter,
-readers, minh_to_bnd) runs with jax unimportable."""
+readers, minh_to_bnd, the minp converter and reader) runs with jax
+unimportable."""
 
 import os
 import subprocess
@@ -151,6 +152,30 @@ BLOCK_JAX = textwrap.dedent("""
     assert open(tmp / "hlist_1.00000.bnd.minh", "rb").read() == \
         open(tmp / "port.bnd.minh", "rb").read()
     inspect_minh.inspect(str(tmp / "port.bnd.minh"), ["pid"], "cpu")
+
+    from minnow_tpu.formats import minp
+    from minnow_tpu.ingest import lgadget2, snapshot
+    from minnow_torch.cli import convert_snapshot
+    from minnow_torch.formats import minp_device
+    rng = np.random.default_rng(1)
+    n = 64
+    hd = minp.Header(l=50.0, omega_m=0.3, n_side=4, n_total=n)
+    snapshot.calc_uniform_mass(hd)
+    snap = snapshot.MockSnapshot(
+        hd, [rng.uniform(0, 49, (n, 3)).astype(np.float32)],
+        [rng.normal(0, 50, (n, 3)).astype(np.float32)], [np.arange(1, n + 1)])
+    for d in ("gadget", "minp"):
+        (tmp / d).mkdir()
+    lgadget2.write_lgadget2(
+        str(tmp / "gadget"), "snap_%03d.dat", snap,
+        lgadget2.LGadget2Header(time=1.0, box_size=50.0,
+                                n_part_total=(0, n, 0, 0, 0, 0)))
+    convert_snapshot.to_minp(str(tmp / "gadget"), str(tmp / "minp"), 1, 2,
+                             0.001, 0.01, "cpu")
+    for kind in "xv":
+        with minp.open(str(tmp / "minp" / ("%s_0.minp" % kind))) as r:
+            got = minp_device.read_vectors(r, "cpu").numpy()
+            assert (got.view(np.uint32) == r.vectors().view(np.uint32)).all()
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     assert not loaded, loaded
     print("NO_JAX_OK")
