@@ -10,23 +10,27 @@ Phases, each of which raises at its first failure:
    all started together, for sm_90a;
 3. kernels against their plain PyTorch versions on the card, bitwise
    (tolerance zero: words, metadata, integers and float bit patterns must
-   be equal): K1 float encode at widths 1..30, K2 float decode at widths
-   0..64 in the three dither modes, K3 int pack at widths 1..64 with IDs
-   above 2^53, K4 int unpack at widths 0..64 with minimums at -2^63 and
-   2^63 - 1 and deltas of 2^width - 1, K5 (the pack from the stats
-   launch's pixels) at widths 1..32, equal to K1's pack too; the TPU's
+   be equal): K1 float encode (its stats, plan and pack launches and the
+   whole call) and K5 (the pack from the stats launch's pixels, equal to
+   K1's pack too) at widths 1..32, on periodic and non-periodic blocks,
+   blocks K1 does not certify beside valid ones, and ragged batches with
+   lengths 1, 31, 32, 33, 2049 and 2^17 - 1, the plan launch also against
+   the host's ``plan_float``; K2 float decode at widths 0..64 in the
+   three dither modes, K3 int pack at widths 1..64 with IDs above 2^53,
+   K4 int unpack at widths 0..64 with minimums at -2^63 and 2^63 - 1 and
+   deltas of 2^width - 1; the TPU's
    per-tile kernels on their counterparts: B9 ``decode_float_group`` in
    none and midpoint, B10 ``decode_int_group`` with zero minimums and B11
    ``pack_batch`` at widths 1..32 (also against ``spec.pack_bits``).
    Then each kernel at the flagship block shape (4096 blocks x 2^17
    elements, 18 bits; K4 also at 54 bits), timed (CUDA events, median of
-   7 after warm-up) beside its plain version; K1's two launches, the
+   7 after warm-up) beside its plain version; K1's three launches, the
    stats launch storing pixels, and K5 apart.  The path of K5,
    ``encode_float_group(reuse_q=True)``, runs once there with the launch
    counts at zero around it, and its words must equal K1's;
 4. the first main path: a 1,000,000-row Rockstar-style catalog through
-   ``text_to_minh --device``, byte-compared with the file of the
-   reference's host converter, every float column read back on the card
+   ``text_to_minh --device``, byte-compared with the file of the same
+   converter in host mode, every float column read back on the card
    with ``read_floats`` in the none, midpoint and uniform modes and the
    ``int`` columns with ``read_ints``, bitwise equal to the host reader.
    K1 to K4 must have been launched by this phase.  Before it, K1 to K4
@@ -35,10 +39,10 @@ Phases, each of which raises at its first failure:
 5. the boundary path: a second 1,000,000-row catalog with ``int`` IDs
    above 2^53 through ``text_to_minh --device`` (byte-compared as in 4)
    and ``read_ints``, then ``minh_to_bnd --device`` at 8 cells and
-   boundary 5.0, byte-compared with the reference's host ``minh_to_bnd``
+   boundary 5.0, byte-compared with ``minh_to_bnd`` in host mode
    (``uniform`` dither); every column of the boundary file read back on
    the card, bitwise equal to the host reader, and ``inspect_minh
-   --device`` printing what the reference's host ``inspect_minh`` prints.
+   --device`` printing what ``inspect_minh`` prints in host mode.
    K1 to K4 must have been launched by this phase.  Before it, K1 to K4
    are checked and timed as in 4 at this phase's shapes: K1 and K3 on
    one column of 512 ragged cells, K2 and K4 on a bucket of cells of one
@@ -47,8 +51,8 @@ Phases, each of which raises at its first failure:
    lattice positions with Gaussian displacements and collapsed clusters;
    Gaussian velocities) through ``convert_snapshot to_minp --device`` at
    2 file cells and 8 sub-cells (16 files of 2^21 particles, 3 x 512
-   blocks of 4,096 each), every file byte-compared with the reference's
-   host converter's; every file read back on the card with
+   blocks of 4,096 each), every file byte-compared with the host mode's;
+   every file read back on the card with
    ``read_vectors`` in ``uniform``, one x and one v file also in ``none``
    and ``midpoint``, bitwise equal to the host reader, and the positions
    and velocities of one file cell within dx and dv of the source.  K1
@@ -59,16 +63,17 @@ Phases, each of which raises at its first failure:
 The runs of phases 4, 5 and 6 and of K5's path in phase 3 each start the
 launch counts at zero and read them at their end.  The last three lines
 are the nvidia-smi line, a JSON line with each kernel's numbers
-(launches: the sum over those four runs), and ``{"ok": true, "device":
+(launches: the sum over those four runs; ``bound_ms``: the least time
+the card could take for the flagship call, from its bytes and
+operations), and ``{"ok": true, "device":
 ...}``.  Without a CUDA device, or outside a checkout of the repository,
 it fails before printing any of them.  Files go to ``build/chip_smoke/``
 in the checkout.
 
-The port reuses the reference package's host layers that touch no device
-(the minnow container, the minh and minp formats, text and snapshot
-ingest); the script checks
-at the end that no jax module and none of the reference's device modules
-were imported.
+The host side of every comparison is the port's own host mode (the same
+CLI without ``--device``, the ``formats`` readers on numpy), which the
+CPU tests hold byte for byte to ``minnow_tpu``'s.  The script checks at
+the end that no module of jax, jaxlib or minnow_tpu was imported.
 """
 
 import contextlib
@@ -85,22 +90,17 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# the reference's host CLIs and format modules import no jax
-from minnow_tpu.cli import convert_snapshot as ref_convert_snapshot  # noqa
-from minnow_tpu.cli import inspect_minh as ref_inspect_minh  # noqa: E402
-from minnow_tpu.cli import minh_to_bnd as ref_minh_to_bnd  # noqa: E402
-from minnow_tpu.cli import text_to_minh as ref_text_to_minh  # noqa: E402
-from minnow_tpu.core import spec  # noqa: E402
-from minnow_tpu.formats import minh, minp  # noqa: E402
-from minnow_tpu.ingest import lgadget2, snapshot  # noqa: E402
-from minnow_tpu.utils.profiling import StageTimer  # noqa: E402
 from minnow_torch.cli import convert_snapshot, inspect_minh  # noqa: E402
 from minnow_torch.cli import minh_to_bnd, text_to_minh  # noqa: E402
-from minnow_torch.formats import minh_device, minp_device  # noqa: E402
+from minnow_torch.core import spec  # noqa: E402
+from minnow_torch.formats import minh, minh_device, minp  # noqa: E402
+from minnow_torch.formats import minp_device  # noqa: E402
+from minnow_torch.ingest import lgadget2, snapshot  # noqa: E402
 from minnow_torch.ops import _build, bitpack, codec, decode  # noqa: E402
 from minnow_torch.ops import encode  # noqa: E402
 from minnow_torch.utils.device import (card_info, cuda_device,  # noqa: E402
                                        time_ms)
+from minnow_torch.utils.profiling import StageTimer  # noqa: E402
 
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 FLAGSHIP = (4096, 1 << 17)     # blocks x elements: the JAX bench's shape
@@ -183,30 +183,76 @@ def k1_position_batch(rng, n):
         np.ones(4, bool), np.full(4, n, np.int64)
 
 
-def check_k1(dev, rng):
-    widths, err = set(), 0
+def edge_batches(rng):
+    """Blocks of 2^17 - 1 elements at widths about 1, 7, 18 and 30 with
+    ragged lengths around the pack's word and tile edges: 1, 31, 32, 33,
+    2049, the whole row and none; block 4 holds a NaN beside valid
+    blocks, block 5 a pixel beyond the range."""
+    n = (1 << 17) - 1
+    lens = np.array([n, 1, 31, 32, n, 33, 2049, 0], np.int64)
+    return [k1_batch(rng, k, n)[:5] + (lens,) for k in (1, 7, 18, 30)]
+
+
+def check_float_encode(dev, rng):
+    """K1's three launches and K5 against their plain versions, bitwise,
+    on the same batches: the stats rows with and without stored pixels,
+    the plan kernel against the host's ``plan_float`` and its plain
+    version, K1's pack and K5 against the plain pack and each other, and
+    the whole call, ``encode_float_group`` with and without ``reuse_q``,
+    at the exact capacity.  Returns the largest error of K1 and of K5."""
+    widths, err1, err5 = set(), 0, 0
     n = 3001
-    batches = [k1_batch(rng, k, n) for k in range(1, 31)]
-    batches.append(k1_position_batch(rng, n))
+    batches = [k1_batch(rng, k, n) for k in range(1, 32)]
+    batches += [k1_position_batch(rng, n), wide_batch(rng, n)]
+    batches += edge_batches(rng)
     for x, low, high, pixels, periodic, lens in batches:
         params = codec.block_params(low, high, pixels, periodic, dev)
         xt = torch.from_numpy(x).to(dev)
         lt = torch.from_numpy(lens).to(dev)
+        q = torch.zeros(x.shape, dtype=torch.int32, device=dev)
+        q_plain = q.clone()
         stats = encode.float_stats(xt, params, lt)
-        ref_stats = encode.float_stats_plain(xt, params, lt)
-        err = max(err, int_err(stats, ref_stats))
+        err1 = max(err1, int_err(stats, encode.float_stats_plain(
+            xt, params, lt, q_out=q_plain)))
+        err5 = max(err5, int_err(stats, encode.float_stats(
+            xt, params, lt, q_out=q)), int_err(q, q_plain))
         plan = encode.plan_float(stats, params, lt)
+        dplan = encode.float_plan(stats, params, lt)
+        if not (plan_eq(encode.read_plan(dplan), plan)
+                and torch.equal(dplan, encode.float_plan_plain(stats, params,
+                                                               lt))):
+            raise AssertionError("K1 plan launch differs from plan_float")
         words = encode.pack_float(xt, params, lt, plan)
         ref_words = encode.pack_float_plain(xt, params, lt, plan)
-        err = max(err, int_err(words, ref_words))
+        err1 = max(err1, int_err(words, ref_words))
+        err5 = max(err5, int_err(encode.pack_float_q(q, params, lt, plan),
+                                 words),
+                   int_err(encode.pack_float_q_plain(q, params, lt, plan),
+                           words))
+        for reuse_q in (False, True):
+            w, p = encode.encode_float_group(xt, params, lt, reuse_q=reuse_q,
+                                             capacity=plan.total)
+            if not plan_eq(p, plan):
+                raise AssertionError("encode_float_group(reuse_q=%s): plan "
+                                     "differs" % reuse_q)
+            e = int_err(w, words)
+            err1, err5 = (err1, max(err5, e)) if reuse_q \
+                else (max(err1, e), err5)
         widths.update(int(b) for b in plan.bits[plan.valid])
-    missing = set(range(1, 31)) - widths
-    if err or missing:
-        raise AssertionError("K1 sweep: max err %d, widths not seen %s"
-                             % (err, sorted(missing)))
-    log("K1 sweep: widths 1..30 at n=%d, stats and words bitwise equal to "
-        "the plain version" % n)
-    return err
+    missing = set(range(1, 33)) - widths
+    if err1 or err5 or missing:
+        raise AssertionError("K1/K5 sweep: max err %d, %d, widths not seen "
+                             "%s" % (err1, err5, sorted(missing)))
+    log("K1 and K5 sweep: widths 1..32 at n=%d and ragged lengths 1, 31, "
+        "32, 33, 2049 and 2^17 - 1: stats, stored pixels, the plan launch "
+        "(against plan_float), K1's and K5's words and both whole calls "
+        "bitwise equal to the plain versions, K5's words to K1's" % n)
+    return err1, err5
+
+
+def plan_eq(a, b):
+    """True when two plans hold the same values."""
+    return all(np.array_equal(u, v) for u, v in zip(a, b))
 
 
 def check_k2(dev, rng):
@@ -302,41 +348,6 @@ def wide_batch(rng, n):
         np.zeros(2, bool), np.array([n, n - 7], np.int64)
 
 
-def check_k5(dev, rng):
-    """The stats launch storing pixels, and K5 packing them, against their
-    plain versions; K5's words also against K1's pack for the same plan
-    and the stats against K1's stats without pixels."""
-    widths, err = set(), 0
-    n = 3001
-    batches = [k1_batch(rng, k, n) for k in range(1, 32)]
-    batches += [k1_position_batch(rng, n), wide_batch(rng, n)]
-    for x, low, high, pixels, periodic, lens in batches:
-        params = codec.block_params(low, high, pixels, periodic, dev)
-        xt = torch.from_numpy(x).to(dev)
-        lt = torch.from_numpy(lens).to(dev)
-        q = torch.zeros(x.shape, dtype=torch.int32, device=dev)
-        q_plain = q.clone()
-        stats = encode.float_stats(xt, params, lt, q_out=q)
-        err = max(err, int_err(stats, encode.float_stats(xt, params, lt)),
-                  int_err(stats, encode.float_stats_plain(
-                      xt, params, lt, q_out=q_plain)),
-                  int_err(q, q_plain))
-        plan = encode.plan_float(stats, params, lt)
-        words = encode.pack_float_q(q, params, lt, plan)
-        err = max(err, int_err(words, encode.pack_float_q_plain(
-            q, params, lt, plan)),
-            int_err(words, encode.pack_float(xt, params, lt, plan)))
-        widths.update(int(b) for b in plan.bits[plan.valid])
-    missing = set(range(1, 33)) - widths
-    if err or missing:
-        raise AssertionError("K5 sweep: max err %d, widths not seen %s"
-                             % (err, sorted(missing)))
-    log("K5 sweep: widths 1..32 at n=%d, the stored pixels and K5's words "
-        "bitwise equal to the plain versions, K5's words to K1's pack"
-        % n)
-    return err
-
-
 def check_tile_entries(dev, rng):
     """The TPU's per-tile kernels on their counterparts, at the JAX
     package's test shapes: B9 on K2 (5 x 4,096, 18 bits, none and
@@ -399,6 +410,26 @@ def check_tile_entries(dev, rng):
         % ", ".join("%s %.4f" % kv for kv in t))
 
 
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# and float32 outside the tensor cores; integer operations are counted at
+# the same rate
+PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
+
+
+def bound(nbytes, ops):
+    """The least time the card could take for a kernel's work: the bytes
+    it must move (each input read once, each output written once) over
+    the memory rate, or its arithmetic operations on these inputs over
+    the float32 rate, whichever is larger; and that no single PyTorch call
+    computes the same function (quantize, recentre, min-subtract and
+    bit-pack at a per-block width, or the inverse), so there is no
+    library time."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
+
+
 def reset_counts():
     encode.K1_LAUNCHES = encode.K3_LAUNCHES = encode.K5_LAUNCHES = 0
     decode.K2_LAUNCHES = decode.K4_LAUNCHES = 0
@@ -425,8 +456,9 @@ def chunk_plan(plan, s, row):
 
 def k5_flagship(x, params, lens, words, plan, results):
     """At 4096 x 2^17, 18 bits, K1's ``words`` and ``plan`` given: K1's
-    stats and pack launches, the stats launch storing pixels, and K5,
-    each timed alone; then K5's path, ``encode_float_group(reuse_q=True)``,
+    stats, plan and pack launches, the stats launch storing pixels, and
+    K5, each timed alone (the pack launches with the upload of the host
+    plan they are given); then K5's path, ``encode_float_group(reuse_q=True)``,
     once with the launch counts at zero around it (its words must be
     K1's), timed, and beside it the plain versions of K5 and of the whole
     path, which must give K1's words too.  Returns that run's counts."""
@@ -434,7 +466,13 @@ def k5_flagship(x, params, lens, words, plan, results):
     row = int(plan.offsets[1])
     gb = b * n * 4 / 1e9
     q = torch.empty((b, n), dtype=torch.int32, device=x.device)
+    stats = encode.float_stats(x, params, lens)
+    if not plan_eq(encode.read_plan(encode.float_plan(stats, params, lens)),
+                   encode.plan_float(stats, params, lens)):
+        raise AssertionError("K1 flagship: the plan launch differs from "
+                             "plan_float")
     t = {"K1 stats": time_ms(lambda: encode.float_stats(x, params, lens)),
+         "K1 plan": time_ms(lambda: encode.float_plan(stats, params, lens)),
          "K1 pack": time_ms(lambda: encode.pack_float(x, params, lens,
                                                       plan)),
          "stats storing pixels": time_ms(
@@ -444,7 +482,8 @@ def k5_flagship(x, params, lens, words, plan, results):
 
     reset_counts()
     words_q, plan_q = encode.encode_float_group(x, params, lens,
-                                                reuse_q=True)
+                                                reuse_q=True,
+                                                capacity=words.numel())
     path = counts()
     err = max(err, int_err(words_q, words))
     if err or not (np.array_equal(plan_q.bits, plan.bits)
@@ -452,8 +491,10 @@ def k5_flagship(x, params, lens, words, plan, results):
         raise AssertionError("K5 flagship: words or plan differ from K1's")
     del words_q
     t["reuse_q call"] = time_ms(
-        lambda: encode.encode_float_group(x, params, lens, reuse_q=True))
+        lambda: encode.encode_float_group(x, params, lens, reuse_q=True,
+                                          capacity=words.numel()))
     t["K1 call"] = results["K1"]["ms"]
+    t["K1 launches"] = t["K1 stats"] + t["K1 plan"] + t["K1 pack"]
 
     def plain_k5(check):
         e = 0
@@ -487,7 +528,8 @@ def k5_flagship(x, params, lens, words, plan, results):
     del q
     torch.cuda.empty_cache()
     results["K5"].update(ms=t["K5"], plain_ms=t["K5 plain"],
-                         max_abs_err=max(results["K5"]["max_abs_err"], err))
+                         max_abs_err=max(results["K5"]["max_abs_err"], err),
+                         **bound(b * n * 4 + words.numel() * 4, 4 * b * n))
     log("K5 flagship %dx%d 18 bits, ms (CUDA events, median of 7; plain "
         "median of 3): %s; GB/s of f32: K1 call %.1f, reuse_q call %.1f; "
         "K5's words, the reuse_q path's and both plain versions' bitwise "
@@ -510,8 +552,12 @@ def flagship(dev, results):
                                 np.full(b, 250000), np.ones(b, bool), dev)
     lens = torch.full((b,), n, dtype=torch.int64, device=dev)
 
+    # the capacity a BlockEncoder has for this batch: 250,000 periodic
+    # pixels are at most 18 bits
+    capacity = b * bitpack.words_per_block(18, n)
+
     def enc():
-        return encode.encode_float_group(x, params, lens)
+        return encode.encode_float_group(x, params, lens, capacity=capacity)
 
     words, plan = enc()
     if not (plan.valid.all() and (plan.bits == 18).all()):
@@ -536,7 +582,9 @@ def flagship(dev, results):
     ms = time_ms(enc)
     plain_ms = time_ms(lambda: plain_enc(False), reps=3, warmup=1)
     results["K1"].update(ms=ms, plain_ms=plain_ms,
-                         max_abs_err=max(results["K1"]["max_abs_err"], err1))
+                         max_abs_err=max(results["K1"]["max_abs_err"], err1),
+                         **bound(x.numel() * 4 + words.numel() * 4,
+                                 16 * b * n))
     log("K1 flagship %dx%d 18 bits: kernel %.3f ms (%.1f GB/s of f32), "
         "plain %.3f ms (%.1f GB/s); words bitwise equal"
         % (b, n, ms, gb / ms * 1e3, plain_ms, gb / plain_ms * 1e3))
@@ -571,7 +619,8 @@ def flagship(dev, results):
 
     plain_ms = time_ms(plain_dec, reps=3, warmup=1)
     results["K2"].update(ms=ms, plain_ms=plain_ms,
-                         max_abs_err=max(results["K2"]["max_abs_err"], err2))
+                         max_abs_err=max(results["K2"]["max_abs_err"], err2),
+                         **bound(w2d.numel() * 4 + x.numel() * 4, 24 * b * n))
     log("K2 flagship uniform decode: kernel %.3f ms (%.1f GB/s of f32), "
         "plain %.3f ms (%.1f GB/s); bitwise equal, |x - x_hat| <= %g"
         % (ms, gb / ms * 1e3, plain_ms, gb / plain_ms * 1e3, dmax))
@@ -600,7 +649,9 @@ def flagship(dev, results):
     plain_ms = time_ms(plain_pack, reps=3, warmup=1)
     gb8 = b * n * 8 / 1e9
     results["K3"].update(ms=ms, plain_ms=plain_ms,
-                         max_abs_err=max(results["K3"]["max_abs_err"], err3))
+                         max_abs_err=max(results["K3"]["max_abs_err"], err3),
+                         **bound(xi.numel() * 8 + words.numel() * 4,
+                                 4 * b * n))
     log("K3 flagship int64 pack: kernel %.3f ms (%.1f GB/s of int64), "
         "plain %.3f ms (%.1f GB/s); words bitwise equal"
         % (ms, gb8 / ms * 1e3, plain_ms, gb8 / plain_ms * 1e3))
@@ -645,14 +696,16 @@ def k4_flagship(x, w2d, mins_np, bits, results):
             decode.decode_int_plain(w2d[s], mins[s], bits, n)
 
     plain_ms = time_ms(plain_dec, reps=3, warmup=1)
-    if bits == 18:
-        results["K4"].update(ms=ms, plain_ms=plain_ms)
-    gb8 = b * n * 8 / 1e9
     moved = (w2d.numel() * 4 + b * n * 8) / 1e9
+    if bits == 18:
+        results["K4"].update(ms=ms, plain_ms=plain_ms,
+                             **bound(moved * 1e9, 4 * b * n))
+    gb8 = b * n * 8 / 1e9
     log("K4 flagship int64 unpack at %d bits: kernel %.3f ms (%.1f GB/s of "
-        "int64, %.1f GB/s moved), plain %.3f ms (%.1f GB/s); both equal to "
-        "the packed values bitwise"
-        % (bits, ms, gb8 / ms * 1e3, moved / ms * 1e3, plain_ms,
+        "int64, %.1f GB/s moved; bound %.3f ms), plain %.3f ms (%.1f GB/s); "
+        "both equal to the packed values bitwise"
+        % (bits, ms, gb8 / ms * 1e3, moved / ms * 1e3,
+           bound(moved * 1e9, 4 * b * n)["bound_ms"], plain_ms,
            gb8 / plain_ms * 1e3))
 
 
@@ -798,8 +851,8 @@ def main_path(dev):
     shutil.rmtree(WORK, ignore_errors=True)
     for sub in ("device", "host", "stages", "warm"):
         os.makedirs(os.path.join(WORK, sub))
-    # set-up: the host text parser is native code that the reference
-    # package builds on first use; build it here, outside the timings
+    # set-up: the host text parser is native code (native/fastbits.cpp)
+    # built on first use; build it here, outside the timings
     t0 = time.perf_counter()
     warm = write_catalog(os.path.join(WORK, "warm"), 1000)[:2]
     text_to_minh.main([*warm[:1], "all", warm[1],
@@ -852,15 +905,13 @@ def main_path(dev):
     need(launches, KERNELS[:4], "the main path")
 
     # stage breakdown of one more device conversion (after the counts)
-    dev_stages = {}
+    dev_timer = StageTimer()
     text_to_minh.convert_file(*args, os.path.join(WORK, "stages", "s.minh"),
-                              dev, timer=dev_stages)
-    host_stages = {k: v["seconds"] for k, v in host_timer.report().items()
-                   if k in dev_stages}
-    for label, st in (("device", dev_stages),
-                      ("reference host converter", host_stages)):
+                              dev, timer=dev_timer)
+    for label, timer in (("device", dev_timer), ("host mode", host_timer)):
         log("stages, %s: %s" % (label, ", ".join(
-            "%s %.3f s" % kv for kv in st.items())))
+            "%s %.3f s" % (k, v["seconds"])
+            for k, v in timer.report().items())))
     return launches
 
 
@@ -882,10 +933,10 @@ def same_file(a, b, what):
 
 def convert_both(config, hlist, work):
     """``text_to_minh --device`` of ``hlist`` into ``work``/device and the
-    reference's host converter into ``work``/host (its own prefetch loop
-    and mass cut, not the port's); the two files must be byte-identical.
-    Returns the device file, the converter's arguments and the host
-    converter's stage timer."""
+    same converter in host mode (the numpy and native codec) into
+    ``work``/host; the two files must be byte-identical.  Returns the
+    device file, the converter's arguments and the host run's stage
+    timer."""
     t0 = time.perf_counter()
     text_to_minh.main([config, "all", hlist, os.path.join(work, "device"),
                        "--device"])
@@ -900,12 +951,11 @@ def convert_both(config, hlist, work):
     host_file = os.path.join(work, "host", "hlist_1.00000.minh")
     host_timer = StageTimer()
     t0 = time.perf_counter()
-    ref_text_to_minh.convert_file(*args, host_file, device=False,
-                                  timer=host_timer)
+    text_to_minh.convert_file(*args, host_file, None, timer=host_timer)
     t_host = time.perf_counter() - t0
     size = same_file(dev_file, host_file, "text_to_minh --device")
-    log("text_to_minh --device: %.3f s; reference host converter: %.3f s; "
-        "the two files are byte-identical (%d bytes)" % (t_dev, t_host, size))
+    log("text_to_minh --device: %.3f s; host mode: %.3f s; the two files "
+        "are byte-identical (%d bytes)" % (t_dev, t_host, size))
     return dev_file, args, host_timer
 
 
@@ -1080,8 +1130,8 @@ def check_boundary_shapes(dev, rng):
 def boundary_path(dev):
     """Phase 5: a catalog with ``int`` IDs above 2^53 to minh on the card,
     then to the boundary layout with ``minh_to_bnd --device``, read back
-    and inspected on the card; every file and value against the
-    reference's host path."""
+    and inspected on the card; every file and value against the port's
+    host mode."""
     work = os.path.join(WORK, "boundary")
     for sub in ("device", "host", "bnd_device", "bnd_host"):
         os.makedirs(os.path.join(work, sub))
@@ -1106,16 +1156,15 @@ def boundary_path(dev):
     bnd = os.path.join(work, "bnd_device", "hlist_1.00000.bnd.minh")
     host_bnd = os.path.join(work, "bnd_host", "hlist_1.00000.bnd.minh")
     t0 = time.perf_counter()
-    ref_minh_to_bnd.convert_file(src, host_bnd, CELLS, BOUNDARY,
-                                 device=False)
+    minh_to_bnd.convert_file(src, host_bnd, CELLS, BOUNDARY, None)
     t_host = time.perf_counter() - t0
     size = same_file(bnd, host_bnd, "minh_to_bnd --device")
     r = minh.open(bnd)
     rows, blocks = r.length, r.blocks
     lens = np.asarray(r.block_lengths)
     r.close()
-    log("minh_to_bnd --device (%d cells, boundary %g): %.3f s; reference "
-        "host minh_to_bnd: %.3f s; the two files are byte-identical (%d "
+    log("minh_to_bnd --device (%d cells, boundary %g): %.3f s; host "
+        "mode: %.3f s; the two files are byte-identical (%d "
         "bytes, %d rows in %d cells of %d..%d rows)"
         % (CELLS ** 3, BOUNDARY, t_dev, t_host, size, rows, blocks,
            lens.min(), lens.max()))
@@ -1142,13 +1191,13 @@ def boundary_path(dev):
     t0 = time.perf_counter()
     out = printed(inspect_minh.main, [bnd, "--device"])
     t_inspect = time.perf_counter() - t0
-    ref_out = printed(ref_inspect_minh.main, [bnd])
-    if out != ref_out:
+    host_out = printed(inspect_minh.main, [bnd])
+    if out != host_out:
         raise AssertionError("inspect_minh --device prints otherwise than "
-                             "the reference's host inspect_minh:\n%s\n%s"
-                             % (out, ref_out))
-    log("inspect_minh --device: %.3f s, %d lines equal to the reference's "
-        "host output" % (t_inspect, len(out.splitlines())))
+                             "inspect_minh in host mode:\n%s\n%s"
+                             % (out, host_out))
+    log("inspect_minh --device: %.3f s, %d lines equal to the host mode's "
+        "output" % (t_inspect, len(out.splitlines())))
 
     launches = counts()
     log("boundary path launches: %s; K4 widths of the source file %s; "
@@ -1275,8 +1324,8 @@ def check_snapshot_shapes(dev, gadget):
 
 def snapshot_path(dev):
     """Phase 6: a 256^3-particle LGadget-2 snapshot to minp with
-    ``convert_snapshot --device``, byte-compared with the reference's host
-    converter, and read back on the card with ``read_vectors``, bitwise
+    ``convert_snapshot --device``, byte-compared with the same converter
+    in host mode, and read back on the card with ``read_vectors``, bitwise
     equal to the host reader and within dx, dv of the source."""
     work = os.path.join(WORK, "snapshot")
     gadget, dev_dir, host_dir = (os.path.join(work, d)
@@ -1298,7 +1347,7 @@ def snapshot_path(dev):
     torch.cuda.synchronize()
     t_dev = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ref_convert_snapshot.main(["to_minp", gadget, host_dir, *args])
+    convert_snapshot.main(["to_minp", gadget, host_dir, *args])
     t_host = time.perf_counter() - t0
     names = sorted(os.listdir(host_dir))
     if sorted(os.listdir(dev_dir)) != names or len(names) != \
@@ -1307,8 +1356,8 @@ def snapshot_path(dev):
                              % (sorted(os.listdir(dev_dir)), names))
     size = sum(same_file(os.path.join(dev_dir, f), os.path.join(host_dir, f),
                          "convert_snapshot --device, %s" % f) for f in names)
-    log("convert_snapshot to_minp --device: %.3f s; reference host "
-        "converter: %.3f s; %d files byte-identical (%d bytes)"
+    log("convert_snapshot to_minp --device: %.3f s; host mode: %.3f s; "
+        "%d files byte-identical (%d bytes)"
         % (t_dev, t_host, len(names), size))
 
     reads = []  # (mode, seconds on the card, seconds on the host)
@@ -1381,11 +1430,11 @@ def main():
 
     results = {k: {"max_abs_err": 0} for k in KERNELS}
     rng = np.random.default_rng(5)
-    results["K1"]["max_abs_err"] = check_k1(dev, rng)
+    results["K1"]["max_abs_err"], results["K5"]["max_abs_err"] = \
+        check_float_encode(dev, rng)
     results["K2"]["max_abs_err"] = check_k2(dev, rng)
     results["K3"]["max_abs_err"] = check_k3(dev, rng)
     results["K4"]["max_abs_err"] = check_k4(dev, rng)
-    results["K5"]["max_abs_err"] = check_k5(dev, rng)
     check_tile_entries(dev, rng)
     reuse_path = flagship(dev, results)
     need(reuse_path, ("K1", "K5"), "the reuse_q path")
@@ -1403,14 +1452,10 @@ def main():
     launches = {k: sum(run[k] for run in runs) for k in KERNELS}
 
     banned = [m for m in sys.modules
-              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-              or m.startswith(("minnow_tpu.ops", "minnow_tpu.parallel",
-                               "minnow_tpu.formats.device_common",
-                               "minnow_tpu.formats.minh_device",
-                               "minnow_tpu.formats.minp_device"))]
+              if m.startswith(("jax", "minnow_tpu"))]
     if banned:
         raise AssertionError("imported: %s" % banned)
-    log("total %.1f s; no jax and no reference device module imported"
+    log("total %.1f s; no module of jax, jaxlib or minnow_tpu imported"
         % (time.perf_counter() - t_start))
 
     sources = {"K1": ("encode_float", "minnow_torch/csrc/encode_float.cu",

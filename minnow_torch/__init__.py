@@ -7,21 +7,29 @@ byte, with the device work done by CUDA kernels for Hopper
 
 Module names mirror ``minnow_tpu`` so each counterpart is easy to find:
 
+* ``core`` -- the minnow container and the normative numpy codec
+  (``core.spec``); ``native`` binds the C++ host engine
+  (``native/fastbits.cpp``);
+* ``formats.minh`` / ``formats.boundary`` / ``formats.minp`` -- the file
+  formats on the host; ``ingest`` -- text catalogs, LGadget-2 snapshots
+  and the Lagrangian Grid; ``utils`` -- config files, name index, stage
+  timing;
 * ``ops.bitpack`` / ``ops.codec`` -- plain PyTorch stream packing and codec
-  arithmetic (the reference semantics of ``minnow_tpu/core/spec.py``);
+  arithmetic (the semantics of ``core/spec.py``);
 * ``ops.encode`` / ``ops.decode`` -- the kernel wrappers, each beside its
   plain PyTorch version;
 * ``parallel.pipeline.BlockEncoder`` -- batched block encode on one device;
 * ``formats.minh_device`` -- bulk column reads of minh files;
 * ``formats.minp_device.read_vectors`` -- bulk reads of minp files;
+* ``formats.boundary_device`` -- batched boundary-file writes;
 * ``cli.text_to_minh``, ``cli.minh_to_bnd``, ``cli.inspect_minh``,
-  ``cli.convert_snapshot`` -- the converters with ``--device``.
+  ``cli.convert_snapshot`` -- the converters, host mode and ``--device``.
 
-The host layers that touch no device (the container, the minh and minp
-formats, text and snapshot ingest, config and name-index parsing) are
-the reference package's own jax-free modules and are imported, not
-copied.  Nothing here imports jax.  Importing the package does no device
-work: kernels are built with nvcc on first use (``ops._build``).
+The package stands alone: it imports nothing of ``minnow_tpu`` and no
+jax.  Its host layers are its own copies of the reference's, the same
+arithmetic and the same bytes on numpy, and each package reads the
+other's files.  Importing the package does no device work: kernels are
+built with nvcc on first use (``ops._build``).
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,13 @@
 """minh_to_bnd: convert basic minh catalogs to the spatial boundary
-layout, with the columns decoded and re-encoded on a CUDA device
-(counterpart of ``minnow_tpu/cli/minh_to_bnd.py``; ref
+layout (counterpart of ``minnow_tpu/cli/minh_to_bnd.py``; ref
 scripts/minh_to_bnd.go).
 
 Usage:
   python -m minnow_torch.cli.minh_to_bnd <cells> <boundary> <glob> <outdir>
         [--device]
 
-With ``--device`` every Float and Int column is read on the CUDA device
+Without ``--device`` the host reader and writer do the conversion.  With
+``--device`` every Float and Int column is read on the CUDA device
 (``formats.minh_device``, kernels K2 and K4) and every cell group of
 those columns is encoded there (``DeviceBoundaryWriter`` with the port's
 ``BlockEncoder``, kernels K1 and K3); without a CUDA device ``--device``
@@ -20,25 +20,31 @@ columns are host reads and host writes in both modes.
 from __future__ import annotations
 
 import glob as globmod
+import os
 import sys
 import time
 
 import numpy as np
 
-# the reference's host layers, jax-free; its DeviceBoundaryWriter only
-# calls the encoder it is given, here the port's BlockEncoder
-from minnow_tpu.cli.minh_to_bnd import out_name
-from minnow_tpu.formats import boundary, minh
-from minnow_tpu.formats.boundary_device import DeviceBoundaryWriter
-
+from ..formats import boundary, minh
+from ..formats.boundary_device import DeviceBoundaryWriter
 from ..formats.minh_device import read_column
 from ..parallel.pipeline import BlockEncoder
 from ..utils.device import cuda_device
 
-__all__ = ["convert_file", "main"]
+__all__ = ["out_name", "convert_file", "main"]
 
 # the column types the reference converts (ref minh_to_bnd.go:61-73)
 _TYPES = (minh.Float, minh.Int, minh.Float32, minh.Int64)
+
+
+def out_name(out_dir: str, fname: str) -> str:
+    """(ref minh_to_bnd.go:41-50)"""
+    base = os.path.basename(fname)
+    toks = base.split(".")
+    toks = toks[:-1] + ["bnd", "minh"] if len(toks) > 1 \
+        else [base, "bnd", "minh"]
+    return os.path.join(out_dir, ".".join(toks))
 
 
 def convert_file(in_name: str, out_name_: str, cells: int, bnd: float,

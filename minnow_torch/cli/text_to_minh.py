@@ -1,68 +1,184 @@
 """text_to_minh: convert Rockstar/consistent-trees text halo catalogs to
-minh, with the float and int columns encoded on a CUDA device
-(counterpart of ``minnow_tpu/cli/text_to_minh.py``; ref
-scripts/text_to_minh.go).
+minh (counterpart of ``minnow_tpu/cli/text_to_minh.py``; ref
+scripts/text_to_minh.go -- the flagship encode pipeline).
 
 Usage:
   python -m minnow_torch.cli.text_to_minh <config> <vars|all> <glob> <outdir>
         [--device] [--block-size=BYTES]
 
-The config, type-index and name-index files are those of the reference
-converter.  With ``--device`` every Float and Int column of a row-block
-is encoded on the CUDA device by the port's kernels, and the output
-bytes equal the host codec's; without a CUDA device ``--device`` is an
-error.  Without it the host codec writes the file.
+Config file (ref text_to_minh.go:80-109):
+
+  [minh]
+  L = 250            # box size, Mpc/h
+  Epsilon = 1        # position precision
+  Mp = 1.54975e+08   # particle mass
+  MinParticles = 50  # mass cut: m > Mp*MinParticles
+  MassName = mvir
+  NameIndex = name_index.txt
+  TypeIndex = type_index.txt
+
+Type-index lines map canonical column names to storage types
+(ref text_to_minh.go:223-269):
+
+  <name> int64 | float32 | int
+  <name> q_float position
+  <name> q_float log|linear <min> <max> <eps>
+
+Without ``--device`` the host codec (``core.spec``, numpy and the native
+engine) writes the file.  With ``--device`` every Float and Int column of
+a row-block is encoded on the CUDA device by the port's kernels
+(``parallel.pipeline.BlockEncoder``, K1 and K3), and the output bytes are
+identical; without a CUDA device ``--device`` is an error.  The
+reference's ``--jobs=N`` (several files at once) is not ported yet.
 """
 
 from __future__ import annotations
 
 import glob as globmod
+import math
 import os
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# the reference converter's host parts, jax-free; its _DeviceMinhWriter
-# only calls the encoder it is given, here the port's BlockEncoder
-from minnow_tpu.cli.text_to_minh import (THREADS, _DeviceMinhWriter,
-                                         column_from_type, out_name,
-                                         parse_config, parse_types,
-                                         parse_vars)
-from minnow_tpu.formats import minh
-from minnow_tpu.ingest import rockstar
-from minnow_tpu.utils.name_index import open_index
-
+from ..formats import minh
+from ..ingest import rockstar
+from ..utils import config as cfgmod
 from ..parallel.pipeline import BlockEncoder
 from ..utils.device import cuda_device
+from ..utils.name_index import open_index
 
-__all__ = ["convert_file", "main"]
+__all__ = ["THREADS", "parse_config", "parse_types", "parse_vars",
+           "column_from_type", "out_name", "convert_file", "main"]
+
+# native-parse worker count.  The reference hard-codes 16 goroutines
+# (ref text_to_minh.go:35), but std::threads oversubscribed past the
+# core count measurably hurt (16 threads on a 4-core host: ~190 MB/s
+# pipelined vs ~236 at 4 -- spawn cost + contention with the writer's
+# encode pool), so cap at the machine.
+THREADS = min(16, os.cpu_count() or 16)
 
 
-def convert_file(cfg, idx, types, wanted, hlist, out, device,
-                 threads=THREADS, block_size=None, timer=None):
-    """Convert one catalog file (ref text_to_minh.go:166-214).
+def parse_config(fname: str):
+    v = cfgmod.ConfigVars("minh")
+    v.float("L", 0)
+    v.float("Epsilon", 0)
+    v.float("Mp", 0)
+    v.int("MinParticles", 0)
+    v.string("MassName", "mvir")
+    v.string("NameIndex", "")
+    v.string("TypeIndex", "")
+    cfgmod.read_config(fname, v)
+    for name in ("L", "Epsilon", "Mp", "MinParticles", "NameIndex",
+                 "TypeIndex"):
+        if not v[name]:
+            raise SystemExit("%s not set in %s" % (name, fname))
+    return v
 
-    ``device`` is the torch device that encodes the Float and Int
-    columns (a CUDA device runs the kernels, ``"cpu"`` their plain
-    versions), or None for the host codec.  ``timer``, when given, is a
-    dict that collects seconds per stage: ``parse_wait``, ``mass_cut``,
-    ``encode+write`` and ``finalize``."""
-    from minnow_tpu.ingest import text as text_mod
+
+def parse_types(fname: str, idx):
+    """(ref text_to_minh.go:111-130)"""
+    out = {}
+    with open(fname) as f:
+        for line in f.read().split("\n"):
+            words = [w for w in line.strip().split(" ") if w]
+            if not words:
+                continue
+            std, ok = idx.standardize(words[0])
+            if not ok:
+                raise SystemExit(
+                    "Variable '%s' isn't contained in name index."
+                    % words[0])
+            out[std] = words[1:]
+    return out
+
+
+def parse_vars(fname: str, idx):
+    """(ref text_to_minh.go:132-150)"""
+    if fname == "all":
+        toks = idx.all_names
+    else:
+        with open(fname) as f:
+            toks = [t for t in f.read().split() if t]
+    out = set()
+    for v in toks:
+        std, ok = idx.standardize(v)
+        if not ok:
+            raise SystemExit(
+                "Variable '%s' isn't contained in name index." % v)
+        out.add(std)
+    return out
+
+
+def column_from_type(cfg, t):
+    """(ref text_to_minh.go:223-269) -> (Column, numpy dtype)"""
+    kind = t[0]
+    if kind == "int64":
+        return minh.Column(type=minh.Int64), np.int64
+    if kind == "float32":
+        return minh.Column(type=minh.Float32), np.float32
+    if kind == "int":
+        return minh.Column(type=minh.Int), np.int64
+    if kind == "q_float":
+        col = minh.Column(type=minh.Float)
+        if t[1] == "position":
+            col.low, col.high, col.dx = 0.0, cfg["L"], cfg["Epsilon"]
+        elif t[1] in ("log", "linear"):
+            mn, mx, eps = float(t[2]), float(t[3]), float(t[4])
+            if t[1] == "log":
+                col.log = 1
+                col.low, col.high = math.log10(mn), math.log10(mx)
+            else:
+                col.low, col.high = mn, mx
+            col.dx = eps
+        else:
+            raise SystemExit("q_float qualifier %s not recognized" % t[1])
+        return col, np.float32
+    raise SystemExit("Type %s not recognized." % kind)
+
+
+def out_name(out_dir: str, hlist: str) -> str:
+    """(ref text_to_minh.go:69-78)"""
+    base = os.path.basename(hlist)
+    toks = base.split(".")
+    toks = toks[:-1] + ["minh"] if len(toks) > 1 else [base, "minh"]
+    return os.path.join(out_dir, ".".join(toks))
+
+
+def convert_file(cfg, idx, types, wanted, hlist, out, device=None,
+                 threads=THREADS, timer=None, block_size=None):
+    """(ref text_to_minh.go:166-214).  ``device`` is the torch device that
+    encodes the Float and Int columns (a CUDA device runs the kernels,
+    ``"cpu"`` their plain versions), or None for the host codec.
+    ``timer`` (optional
+    utils.profiling.StageTimer) collects per-stage seconds/GBps:
+    read / scan_lines / parse (inside the text reader, possibly on the
+    prefetch thread), parse_wait (pipeline bubble on the main thread),
+    encode+write, finalize.
+
+    ``block_size`` caps the text-block size in bytes so parsing block
+    b+1 overlaps encoding block b even within one file.  Default None =
+    the reference's reader config (one row-block for files < 5 GiB,
+    ref go/text/text.go:30-37); smaller blocks change the (equally
+    valid) row-block structure of the output minh."""
+    from ..ingest import text as text_mod
 
     config = None
     if block_size is not None:
         block_size = int(block_size)
         config = text_mod.ReaderConfig(
             max_block_size=block_size,
-            max_item_size=min(text_mod.DEFAULT_READER_CONFIG.max_item_size,
-                              block_size // 2))
+            max_item_size=min(
+                text_mod.DEFAULT_READER_CONFIG.max_item_size,
+                block_size // 2))
     fr = rockstar.open_rockstar(hlist, config)
+    all_names = fr.names()
     header = fr.header()
 
-    names, cols, dtypes, std_all = [], [], [], []
-    for raw in fr.names():
+    names, cols, dtypes = [], [], []
+    std_all = []
+    for raw in all_names:
         std, ok = idx.standardize(raw)
         std_all.append(std)
         if not ok:
@@ -82,40 +198,130 @@ def convert_file(cfg, idx, types, wanted, hlist, out, device,
 
     fr.set_threads(threads)
     fr.set_names(std_all)
+    if timer is not None:
+        fr.set_timer(timer)
 
+    # writer encode pool sized to this call's thread share (see
+    # minh.Writer)
     fm = minh.create(out, encode_workers=min(4, max(1, threads)))
     if device is not None:
         fm = _DeviceMinhWriter(fm, BlockEncoder(device))
     fm.header(names, header, cols)
     fm.geometry(np.float32(cfg["L"]), 0, 0)
 
-    def add(stage, seconds):
-        if timer is not None:
-            timer[stage] = timer.get(stage, 0.0) + seconds
+    # parse/encode overlap: prefetch the next text block on a worker
+    # thread while the current one quantizes/packs/writes (the pipelined
+    # analog of the reference's sequential loop,
+    # ref text_to_minh.go:208-212)
+    from concurrent.futures import ThreadPoolExecutor
 
-    # parse the next text block on a worker thread while this one is
-    # encoded and written (prefetch depth 1, as the reference converter)
+    import time as _time
+
     n_blocks = fr.blocks()
+    # prefetch depth 1: exactly one text block parses ahead of the
+    # encode.  Depth 2 was measured SLOWER on the 4-core host (two
+    # 16-thread parses contend with the writer's 4 encode threads:
+    # 231 vs 240 MB/s mean over 3 runs) -- don't deepen it again.
     with ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(fr.block, 0, names, dtypes)
         for b in range(n_blocks):
-            t0 = time.perf_counter()
+            t0 = _time.perf_counter()
             data = fut.result()
-            t1 = time.perf_counter()
+            t1 = _time.perf_counter()
             if b + 1 < n_blocks:
                 fut = pool.submit(fr.block, b + 1, names, dtypes)
-            keep = data[cfg["MassName"]] > cutoff  # ref :271-288
+            mass = data[cfg["MassName"]]
+            keep = mass > cutoff  # (ref text_to_minh.go:271-288)
             if keep.any():
                 block_cols = [data[n][keep] for n in names]
-                t2 = time.perf_counter()
+                t2 = _time.perf_counter()
                 fm.block(block_cols)
-                add("parse_wait", t1 - t0)
-                add("mass_cut", t2 - t1)
-                add("encode+write", time.perf_counter() - t2)
-    t0 = time.perf_counter()
+                if timer is not None:
+                    t3 = _time.perf_counter()
+                    nbytes = sum(c.nbytes for c in block_cols)
+                    timer.add("parse_wait", t1 - t0)
+                    timer.add("mass_cut", t2 - t1)
+                    timer.add("encode+write", t3 - t2, nbytes)
+    t0 = _time.perf_counter()
     fm.close()
     fr.close()
-    add("finalize", time.perf_counter() - t0)
+    if timer is not None:
+        timer.add("finalize", _time.perf_counter() - t0)
+
+
+class _DeviceMinhWriter:
+    """minh.Writer wrapper that routes Float/Int columns through the
+    device pipeline; bytes identical to the host writer.
+
+    All Float columns of a row-block are quantized/packed in ONE batched
+    device call (their per-column quantization configs broadcast with the
+    batch), likewise all Int columns -- the multi-column analog of the
+    reference's per-column loop (ref go/minh/minh.go:99-139)."""
+
+    def __init__(self, wr: minh.Writer, encoder):
+        self.wr = wr
+        self.enc = encoder
+
+    def header(self, names, text, cols):
+        self.wr.header(names, text, cols)
+
+    def geometry(self, l, boundary, cells):
+        self.wr.geometry(l, boundary, cells)
+
+    def block(self, cols):
+        from ..core import spec, types as ctypes_
+
+        wr = self.wr
+        n = len(np.asarray(cols[0]))
+        wr.block_sizes.append(n)
+        wr.blocks += 1
+
+        float_ids = [i for i, c in enumerate(wr.cols)
+                     if c.type == minh.Float]
+        int_ids = [i for i, c in enumerate(wr.cols)
+                   if c.type == minh.Int]
+
+        encoded = {}
+        if float_ids:
+            x = np.stack([
+                minh.process_float_column(cols[i], wr.cols[i])
+                for i in float_ids])
+            low = np.array([wr.cols[i].low for i in float_ids],
+                           np.float32)
+            high = np.array([wr.cols[i].high for i in float_ids],
+                            np.float32)
+            pixels = np.array([
+                spec.float_group_pixels(wr.cols[i].low, wr.cols[i].high,
+                                        wr.cols[i].dx)
+                for i in float_ids], np.int64)
+            enc = self.enc.encode_float_blocks(x, low, high, pixels)
+            for row, i in enumerate(float_ids):
+                encoded[i] = (enc.payloads[row], enc.mins[row],
+                              enc.bits[row])
+        if int_ids:
+            x = np.stack([np.asarray(cols[i], np.int64)
+                          for i in int_ids])
+            enc = self.enc.encode_int_blocks(x)
+            for row, i in enumerate(int_ids):
+                encoded[i] = (enc.payloads[row], enc.mins[row],
+                              enc.bits[row])
+
+        for i, x in enumerate(cols):
+            col = wr.cols[i]
+            if ctypes_.is_fixed(col.type):
+                wr.f.fixed_size_group(col.type, n)
+                wr.f.data(np.asarray(x, ctypes_.group_dtype(col.type)))
+            elif col.type == minh.Int:
+                wr.f.int_group(n)
+                payload, mn, bits = encoded[i]
+                wr.f.data_encoded(payload, int(mn), int(bits))
+            elif col.type == minh.Float:
+                wr.f.float_group(n, (col.low, col.high), col.dx)
+                payload, mn, bits = encoded[i]
+                wr.f.data_encoded(payload, int(mn), int(bits))
+
+    def close(self):
+        self.wr.close()
 
 
 def main(argv=None):

@@ -10,7 +10,10 @@
 // depend on scheduling.  They replace the TPU's planar tile pack and
 // unpack (minnow_tpu/ops/pallas_encode.py:218 _pack_tile_planar,
 // minnow_tpu/ops/pallas_codec.py:355 _unpack_group_tiles), which exist to
-// fit the (8, 128) vreg tiling.
+// fit the (8, 128) vreg tiling.  gather_word serves the int pack, whose
+// widths reach 64; the float packs (encode_float.cu) pack groups of 32
+// elements in registers, one thread a group, and only divide by the
+// width, with the helpers at the end of this file.
 
 #pragma once
 
@@ -58,7 +61,19 @@ __device__ __forceinline__ uint64_t element(const uint32_t* words,
   return v & low_mask(bits);
 }
 
-// Threads per CTA of every kernel (ops/_launch.py THREADS).
+// Threads per CTA of the kernels whose grid the wrapper shapes
+// (ops/_launch.py THREADS).
 constexpr int kThreads = 256;
+
+// Division by a width w in 1..32 without a divide: for 0 <= a < 2^26,
+// div_by(a, div_magic(w)) == a / w.  With M = floor(2^31 / w) + 1,
+// 2a M / 2^32 = a / w + a (M w - 2^31) / (w 2^31); M w - 2^31 <= w <= 32,
+// so the excess is below 1 / w and never reaches the next integer.
+__device__ __forceinline__ uint32_t div_magic(int w) {
+  return (1u << 31) / (uint32_t)w + 1u;
+}
+__device__ __forceinline__ int div_by(int a, uint32_t magic) {
+  return (int)__umulhi(2u * (uint32_t)a, magic);
+}
 
 }  // namespace minnow

@@ -1,7 +1,10 @@
-"""File formats on the device.
+"""Concrete file formats on top of the minnow container (counterpart of
+``minnow_tpu/formats``).
 
-``minh_device`` and ``minp_device`` hold the port's device reads.  The
-formats themselves (writers, readers, column specs) are the reference
-package's host modules ``minnow_tpu.formats.minh`` and ``.minp``, which
-touch no device and import no jax; callers import them from there.
+``minh``, ``boundary`` and ``minp`` are the host formats, on numpy.
+``minh_device``, ``minp_device`` and ``boundary_device`` (the
+device-batched reads and writes) are not imported here: they pull in
+torch, and host-side file IO needs none of it.  Import them explicitly.
 """
+
+from . import boundary, minh, minp

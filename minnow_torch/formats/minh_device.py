@@ -15,10 +15,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from minnow_tpu.core import types as ctypes_
-from minnow_tpu.formats import minh
-
+from ..core import types as ctypes_
 from ..ops import bitpack
+from . import minh
 from .device_common import group_decode, group_decode_ints
 
 __all__ = ["read_floats", "read_ints", "read_column", "block_widths"]

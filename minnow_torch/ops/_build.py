@@ -42,17 +42,17 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint
 _SIGNATURES = {
-    # x, B, n, grid_y, low, dx, pixels, periodic, lens, stats, q, stream
-    "minnow_encode_float_stats": [_P, _I64, _I64, _U32, _P, _P, _P, _P,
+    # x, B, n, run, low, dx, pixels, periodic, lens, stats, q, stream
+    "minnow_encode_float_stats": [_P, _I64, _I64, _I32, _P, _P, _P, _P,
                                   _P, _P, _P, _P],
-    # x, B, n, low, dx, pixels, periodic, m, mn, bits, lens, offsets,
-    # words, grid_y, stream
+    # stats, pixels, periodic, lens, B, plan, stream
+    "minnow_encode_float_plan": [_P, _P, _P, _P, _I64, _P, _P],
+    # x (or q), B, n, low, dx, pixels, periodic, plan, lens, words,
+    # capacity, stream
     "minnow_encode_float_pack": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _U32, _P],
-    # q, B, n, pixels, periodic, m, mn, bits, lens, offsets, words,
-    # grid_y, stream
+                                 _P, _I64, _P],
     "minnow_encode_float_pack_q": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P,
-                                   _P, _P, _U32, _P],
+                                   _P, _I64, _P],
     # words, B, row_words, n, bits, mins, low, dx, pixels, periodic,
     # mode, k1, k2, out, grid_y, stream
     "minnow_decode_float": [_P, _I64, _I64, _I64, _I32, _P, _P, _P, _P,

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from minnow_tpu.core import spec
+from ..core import spec
 
 __all__ = [
     "words_per_block",

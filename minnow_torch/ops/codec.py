@@ -1,7 +1,8 @@
 """Plain PyTorch codec arithmetic (counterpart of ``minnow_tpu/ops/codec.py``
 and ``ops/fastdiv.py``).
 
-The reference semantics are ``minnow_tpu/core/spec.py``; every function
+The reference semantics are ``core/spec.py`` (the port's copy of
+``minnow_tpu/core/spec.py``); every function
 here is bitwise equal to its spec counterpart on the inputs it accepts:
 
 * quantize: ``q = floor(f32(f32(x - low) / dx))`` -- one IEEE float32
@@ -13,7 +14,7 @@ here is bitwise equal to its spec counterpart on the inputs it accepts:
 * the uniform dither stream (lowbias32 counter hash keyed per block,
   ``core/dither.py``).
 
-Per-block quantisation configs cross from the reference as numpy arrays
+Per-block quantisation configs cross from the host layers as numpy arrays
 (:func:`block_params`); the dither keys as block ids and a seed
 (:func:`dither_keys`).  Every function takes its device explicitly or
 works on the device of the tensors it is given.
@@ -26,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from minnow_tpu.core import dither as dither_mod
+from ..core import dither as dither_mod
 
 __all__ = [
     "BlockParams",
@@ -60,7 +61,7 @@ class BlockParams(NamedTuple):
 
 
 def block_params(low, high, pixels, periodic, device) -> BlockParams:
-    """Per-block configs from the numpy arrays the reference functions
+    """Per-block configs from the numpy arrays the host functions
     take.  ``dx = f32(f32(high - low) / f32(pixels))`` is
     ``spec.quantize_dx`` (= ``codec._dx64``).  Pixel counts must lie in
     ``[1, 2**31)``: the kernels quantize to int32."""

@@ -5,13 +5,16 @@ A wrapper given CUDA tensors launches its kernel (``csrc/encode_float.cu``,
 ``csrc/pack_int.cu``) or raises; given CPU tensors it runs the plain
 version.  Nothing else chooses between them.
 
-An encode is three steps: per-block stats on the device, a host plan
-(:class:`Plan`: each block's minimum, width and word offset), and the
-pack on the device.  A float encode packs with K1's second launch, which
-quantizes x again, or with ``reuse_q`` from the pixels the stats launch
-stored (K5).  Encoded blocks come back as one flat int32 word
-buffer (the uint32 bit patterns) holding each block's stream at its own
-width, back to back at ``plan.offsets`` (``bitpack.block_layout``).
+A float encode is three launches with nothing for the host between them:
+per-block stats (:func:`float_stats`), the plan of the batch on the device
+(:func:`float_plan`: each block's minimum, width and word offset) and the
+pack (:func:`pack_float`, or with ``reuse_q`` K5, :func:`pack_float_q`,
+from the pixels the stats launch stored).  The host reads the plan once,
+after the pack is queued (:func:`read_plan`, a :class:`Plan`).  An int
+encode plans on the host from device reductions and packs with K3.
+Encoded blocks come back as one flat int32 word buffer (the uint32 bit
+patterns) holding each block's stream at its own width, back to back at
+``plan.offsets`` (``bitpack.block_layout``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from . import _build, bitpack, codec
-from ._launch import expect, grid_y, on_card, stream_of
+from ._launch import THREADS, expect, grid_y, on_card, stream_of
 
 __all__ = [
     "K1_LAUNCHES",
@@ -31,6 +34,9 @@ __all__ = [
     "Plan",
     "float_stats",
     "float_stats_plain",
+    "float_plan",
+    "float_plan_plain",
+    "read_plan",
     "plan_float",
     "pack_float",
     "pack_float_plain",
@@ -45,16 +51,21 @@ __all__ = [
     "pack_batch_plain",
 ]
 
-# kernel launches made by the wrappers (K1 counts both of its launches)
+# kernel launches made by the wrappers (K1 counts each of its three)
 K1_LAUNCHES = 0
 K3_LAUNCHES = 0
 K5_LAUNCHES = 0
 
-# items each thread takes: elements in K1's stats launch, output words in
-# the pack launches of K1, K5 and K3.  Fewer, busier CTAs measured faster at
-# 4096 x 2^17 on the H100 (PERF.md, Findings)
+# launch shapes (``tools.ab_launch`` sweeps them at 4096 x 2^17 on the
+# H100; PERF.md, Findings): elements each thread takes in K1's stats
+# launch, and output words per thread of K3.  The float packs (K1, K5)
+# size their own grid: as many persistent CTAs as the card holds
 STATS_PER_THREAD = 32
 PACK_PER_THREAD = 8
+
+# rows of the device plan (csrc/encode_float.cu): six rows of B int64,
+# then the total number of words and the longest block stream's
+PLAN_ROWS = 6
 
 
 class Plan(NamedTuple):
@@ -120,44 +131,113 @@ def float_stats_plain(x, params, lens, q_out=None):
     return codec.float_block_stats(x, params, lens)
 
 
-def float_stats(x, params: codec.BlockParams, lens, q_out=None):
-    """Per-block stats rows (B, 6) int32 of ``codec.float_block_stats``
-    for ``x`` (B, n) float32 over its first ``lens`` elements; K1's first
-    launch on the card.  Given ``q_out`` (B, n) int32, it also stores each
-    element's pixel there (``codec.quantize``'s q, 0 where not certified),
-    in each row's first ``lens`` places only."""
+def _launch_stats(x, params, lens, q_out):
     global K1_LAUNCHES
-    more = []
-    if q_out is not None:
-        expect(q_out, "q_out", torch.int32, tuple(x.shape))
-        more.append(q_out)
-    if not _check_float_args(x, params, lens, *more):
-        return float_stats_plain(x, params, lens, q_out)
     b, n = x.shape
-    _check_lens(lens, n)
-    stats = codec.stats_init(b, x.device)
+    stats = torch.empty((b, 6), dtype=torch.int32, device=x.device)
     if b == 0:
         return stats
     with torch.cuda.device(x.device):
         err = _build.load().minnow_encode_float_stats(
-            x.data_ptr(), b, n, grid_y(int(lens.max()), STATS_PER_THREAD),
-            params.low.data_ptr(),
-            params.dx.data_ptr(), params.pixels.data_ptr(),
-            params.periodic.data_ptr(), lens.data_ptr(), stats.data_ptr(),
+            x.data_ptr(), b, n, THREADS * STATS_PER_THREAD,
+            params.low.data_ptr(), params.dx.data_ptr(),
+            params.pixels.data_ptr(), params.periodic.data_ptr(),
+            lens.data_ptr(), stats.data_ptr(),
             None if q_out is None else q_out.data_ptr(), stream_of(x))
     K1_LAUNCHES += 1
     _build.check(err, "encode_float_stats")
     return stats
 
 
+def float_stats(x, params: codec.BlockParams, lens, q_out=None):
+    """Per-block stats rows (B, 6) int32 of ``codec.float_block_stats``
+    for ``x`` (B, n) float32 over its first ``lens`` elements; K1's first
+    launch on the card.  Given ``q_out`` (B, n) int32, it also stores each
+    element's pixel there (``codec.quantize``'s q, 0 where not certified),
+    in each row's first ``lens`` places only."""
+    more = []
+    if q_out is not None:
+        expect(q_out, "q_out", torch.int32, tuple(x.shape))
+        more.append(q_out)
+    if not _check_float_args(x, params, lens, *more):
+        return float_stats_plain(x, params, lens, q_out)
+    _check_lens(lens, x.shape[1])
+    return _launch_stats(x, params, lens, q_out)
+
+
 def plan_float(stats, params: codec.BlockParams, lens) -> Plan:
     """Host plan from the stats rows: recentring offset, minimum and
     width of each block, as ``spec.periodic_min_fast`` and
-    ``pallas_encode.py:591-617`` derive them."""
+    ``pallas_encode.py:591-617`` derive them.  The reference that
+    :func:`float_plan` is held to; no encode path calls it."""
     host = [t.cpu() for t in (stats, params.pixels, params.periodic, lens)]
     m, mn, maxd, valid = (t.numpy() for t in codec.finish_float_stats(
         *host))
     return _plan(mn, maxd, valid, m, host[3].numpy())
+
+
+def float_plan_plain(stats, params, lens):
+    """Plain version of K1's plan launch: ``codec.finish_float_stats``,
+    the bit length of each largest delta (below 2^62) and the exclusive
+    prefix sum of the blocks' word counts, in the device plan's layout."""
+    m, mn, maxd, valid = codec.finish_float_stats(
+        stats, params.pixels, params.periodic, lens)
+    zero = torch.zeros_like(mn)
+    mn = torch.where(valid, mn, zero)
+    maxd = torch.where(valid, maxd, zero)
+    powers = 2 ** torch.arange(62, dtype=torch.int64, device=stats.device)
+    bits = torch.bucketize(maxd, powers, right=True)
+    nw = (bits * lens + 31) >> 5
+    tail = torch.stack([nw.sum(), nw.max() if nw.numel() else nw.sum()])
+    return torch.cat([mn, maxd, bits, valid.to(torch.int64), m,
+                      nw.cumsum(0) - nw, tail])
+
+
+def _launch_plan(stats, params, lens):
+    global K1_LAUNCHES
+    b = stats.shape[0]
+    plan = torch.empty(PLAN_ROWS * b + 2, dtype=torch.int64,
+                       device=stats.device)
+    with torch.cuda.device(stats.device):
+        err = _build.load().minnow_encode_float_plan(
+            stats.data_ptr(), params.pixels.data_ptr(),
+            params.periodic.data_ptr(), lens.data_ptr(), b, plan.data_ptr(),
+            stream_of(stats))
+    K1_LAUNCHES += 1
+    _build.check(err, "encode_float_plan")
+    return plan
+
+
+def float_plan(stats, params: codec.BlockParams, lens):
+    """The plan of a float batch from its stats rows, on the stats'
+    device: a (6 B + 2,) int64 tensor holding the rows ``mins``, ``maxd``,
+    ``bits``, ``valid``, ``m`` and ``offsets`` of :class:`Plan`, then
+    ``total`` and ``max_words``.  K1's second launch on the card;
+    :func:`read_plan` brings it to the host."""
+    expect(stats, "stats", torch.int32, (None, 6))
+    b = stats.shape[0]
+    _check_params(b, params, lens)
+    if not on_card(stats, *params, lens):
+        return float_plan_plain(stats, params, lens)
+    return _launch_plan(stats, params, lens)
+
+
+def read_plan(plan) -> Plan:
+    """The :class:`Plan` of a device plan tensor: one copy to the host."""
+    h = plan.cpu().numpy()
+    b = (len(h) - 2) // PLAN_ROWS
+    mins, maxd, bits, valid, m, offsets = h[:PLAN_ROWS * b].reshape(
+        PLAN_ROWS, b)
+    return Plan(mins, maxd, bits, valid.astype(bool), m, offsets,
+                int(h[-2]), int(h[-1]))
+
+
+def _device_plan(plan: Plan, device):
+    """A host plan in the device plan's layout, on ``device``."""
+    return _put(np.concatenate([plan.mins, plan.maxd, plan.bits, plan.valid,
+                                plan.m, plan.offsets,
+                                [plan.total, plan.max_words]]),
+                np.int64, device)
 
 
 def pack_float_q_plain(q, params, lens, plan: Plan):
@@ -178,88 +258,99 @@ def pack_float_plain(x, params, lens, plan: Plan):
     return pack_float_q_plain(q, params, lens, plan)
 
 
-def _check_plan(plan: Plan, b: int):
+def _launch_pack(src, params, lens, plan, capacity: int):
+    """The tile pack of ``src`` -- x (K1) or the stored pixels (K5) -- by
+    the device plan ``plan`` into a new buffer of ``capacity`` words.  A
+    block whose stream would end past the buffer is left out."""
+    global K1_LAUNCHES, K5_LAUNCHES
+    b, n = src.shape
+    words = torch.empty(capacity, dtype=torch.int32, device=src.device)
+    if capacity == 0 or b == 0 or n == 0:
+        return words
+    lib = _build.load()
+    from_x = src.dtype == torch.float32
+    kernel = (lib.minnow_encode_float_pack if from_x
+              else lib.minnow_encode_float_pack_q)
+    with torch.cuda.device(src.device):
+        err = kernel(
+            src.data_ptr(), b, n, params.low.data_ptr(),
+            params.dx.data_ptr(), params.pixels.data_ptr(),
+            params.periodic.data_ptr(), plan.data_ptr(), lens.data_ptr(),
+            words.data_ptr(), capacity, stream_of(src))
+    if from_x:
+        K1_LAUNCHES += 1
+    else:
+        K5_LAUNCHES += 1
+    _build.check(err, "encode_float_pack" if from_x
+                 else "encode_float_pack_q")
+    return words
+
+
+def _pack_by_host_plan(src, params, lens, plan: Plan):
+    b, n = src.shape
+    _check_lens(lens, n)
     if plan.bits.size != b or plan.bits.max(initial=0) > 32:
         raise ValueError("the plan must give B widths in [0, 32]")
+    return _launch_pack(src, params, lens, _device_plan(plan, src.device),
+                        plan.total)
 
 
 def pack_float(x, params: codec.BlockParams, lens, plan: Plan):
     """Pack each block's recentred, min-subtracted pixels at its planned
-    width (0..32) into the (plan.total,) int32 buffer; K1's second launch
+    width (0..32) into the (plan.total,) int32 buffer; K1's third launch
     on the card."""
-    global K1_LAUNCHES
     if not _check_float_args(x, params, lens):
         return pack_float_plain(x, params, lens, plan)
-    b, n = x.shape
-    _check_lens(lens, n)
-    _check_plan(plan, b)
-    dev = x.device
-    words = torch.empty(plan.total, dtype=torch.int32, device=dev)
-    if plan.total == 0:
-        return words
-    m, mn, offsets = (_put(a, np.int64, dev)
-                      for a in (plan.m, plan.mins, plan.offsets))
-    bits = _put(plan.bits, np.int32, dev)
-    with torch.cuda.device(dev):
-        err = _build.load().minnow_encode_float_pack(
-            x.data_ptr(), b, n, params.low.data_ptr(), params.dx.data_ptr(),
-            params.pixels.data_ptr(), params.periodic.data_ptr(),
-            m.data_ptr(), mn.data_ptr(), bits.data_ptr(), lens.data_ptr(),
-            offsets.data_ptr(), words.data_ptr(),
-            grid_y(plan.max_words, PACK_PER_THREAD), stream_of(x))
-    K1_LAUNCHES += 1
-    _build.check(err, "encode_float_pack")
-    return words
+    return _pack_by_host_plan(x, params, lens, plan)
 
 
 def pack_float_q(q, params: codec.BlockParams, lens, plan: Plan):
     """What :func:`pack_float` packs, from the pixels ``q`` (B, n) int32
     that :func:`float_stats` stored for this plan's x; K5 on the card."""
-    global K5_LAUNCHES
     expect(q, "q", torch.int32, (None, None))
-    b, n = q.shape
-    _check_params(b, params, lens)
+    _check_params(q.shape[0], params, lens)
     if not on_card(q, *params, lens):
         return pack_float_q_plain(q, params, lens, plan)
-    _check_lens(lens, n)
-    _check_plan(plan, b)
-    dev = q.device
-    words = torch.empty(plan.total, dtype=torch.int32, device=dev)
-    if plan.total == 0:
-        return words
-    m, mn, offsets = (_put(a, np.int64, dev)
-                      for a in (plan.m, plan.mins, plan.offsets))
-    bits = _put(plan.bits, np.int32, dev)
-    with torch.cuda.device(dev):
-        err = _build.load().minnow_encode_float_pack_q(
-            q.data_ptr(), b, n, params.pixels.data_ptr(),
-            params.periodic.data_ptr(), m.data_ptr(), mn.data_ptr(),
-            bits.data_ptr(), lens.data_ptr(), offsets.data_ptr(),
-            words.data_ptr(), grid_y(plan.max_words, PACK_PER_THREAD),
-            stream_of(q))
-    K5_LAUNCHES += 1
-    _build.check(err, "encode_float_pack_q")
-    return words
+    return _pack_by_host_plan(q, params, lens, plan)
 
 
 def encode_float_group(x, params: codec.BlockParams, lens,
-                       reuse_q: bool = False):
+                       reuse_q: bool = False, capacity: int = None):
     """Encode float blocks ``x`` (B, n) float32 over their first ``lens``
-    elements: stats launch, host plan, pack launch.  Returns
-    ``(words, plan)``; every valid block has its true width.
+    elements: stats launch, plan launch, pack launch, then one read of
+    the plan.  Returns ``(words, plan)``; every valid block has its true
+    width.
+
+    ``capacity`` is an upper bound on the words of the batch that the
+    caller has on the host (the word buffer is allocated before the plan
+    is known); without one it is B n, every block at 32 bits.
 
     With ``reuse_q`` the stats launch also stores each element's pixel
     in an int32 (B, n) buffer and K5 packs from it, where K1's pack
     quantizes x again (``encode_float_pallas_bigblock(reuse_q=True)``,
     ``pallas_encode.py:855``); the words are the same."""
-    if not reuse_q:
-        stats = float_stats(x, params, lens)
-        plan = plan_float(stats, params, lens)
-        return pack_float(x, params, lens, plan), plan
-    q = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    stats = float_stats(x, params, lens, q_out=q)
-    plan = plan_float(stats, params, lens)
-    return pack_float_q(q, params, lens, plan), plan
+    if not _check_float_args(x, params, lens):
+        q = torch.empty(x.shape, dtype=torch.int32) if reuse_q else None
+        stats = float_stats_plain(x, params, lens, q)
+        plan = read_plan(float_plan_plain(stats, params, lens))
+        if reuse_q:
+            return pack_float_q_plain(q, params, lens, plan), plan
+        return pack_float_plain(x, params, lens, plan), plan
+    b, n = x.shape
+    _check_lens(lens, n)
+    if capacity is None:
+        capacity = b * n
+    q = None
+    if reuse_q:
+        q = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    stats = _launch_stats(x, params, lens, q)
+    dplan = _launch_plan(stats, params, lens)
+    words = _launch_pack(q if reuse_q else x, params, lens, dplan, capacity)
+    plan = read_plan(dplan)
+    if plan.total > capacity:
+        raise ValueError("the batch packs to %d words, above the capacity "
+                         "of %d" % (plan.total, capacity))
+    return words[:plan.total], plan
 
 
 # -- K3: int delta pack ---------------------------------------------------------

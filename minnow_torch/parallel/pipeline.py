@@ -4,7 +4,9 @@
 A batch of minnow blocks, one per row, goes to the device, is encoded
 there by kernel K1 (float) or K3 (int) at each block's true width, and
 comes back as per-block payload bytes plus the tail metadata the
-container needs (ref go/group.go:242-255, 312-327).  Float blocks the
+container needs (ref go/group.go:242-255, 312-327).  A float batch is
+three launches and then one read: the plan of the batch (minimums, widths,
+offsets) comes to the host with the words.  Float blocks the
 kernel does not certify (non-finite values, pixels beyond int32, or a
 periodic block with pixels outside ``[0, pixels)``) are encoded by the
 normative host encoder ``spec.encode_float_block``, as the reference's
@@ -20,8 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from minnow_tpu.core import spec
-
+from ..core import spec
 from ..ops import bitpack, codec, encode
 
 __all__ = ["EncodedBlocks", "BlockEncoder"]
@@ -70,6 +71,16 @@ def _payloads(words: np.ndarray, offsets, bits, lens) -> list:
     return out
 
 
+def _float_capacity(pixels, periodic, lens) -> int:
+    """An upper bound on the words of a float batch, from what the host
+    knows before the encode: a block K1 certifies has pixels below 2^31,
+    so a width of at most 32, and a periodic one has them in [0, pixels),
+    so deltas below ``pixels``."""
+    widest = np.where(periodic, np.frexp((pixels - 1).astype(np.float64))[1],
+                      32)
+    return int(bitpack.words_per_block(np.minimum(widest, 32), lens).sum())
+
+
 class BlockEncoder:
     """Encodes (B, N) batches of minnow blocks on ``device``: a CUDA
     device runs the kernels, the CPU their plain versions."""
@@ -115,8 +126,9 @@ class BlockEncoder:
         periodic = np.broadcast_to(np.asarray(periodic, bool), (b,)).copy()
         params = codec.block_params(low, high, pixels, periodic,
                                     self.device)
-        words, plan = encode.encode_float_group(self._put(x), params,
-                                                self._put(lens))
+        words, plan = encode.encode_float_group(
+            self._put(x), params, self._put(lens),
+            capacity=_float_capacity(pixels, periodic, lens))
         payloads = _payloads(words.cpu().numpy(), plan.offsets, plan.bits,
                              lens)
         mins, bits = plan.mins.copy(), plan.bits.copy()

@@ -1,17 +1,29 @@
-"""A/B of the kernels' launch shapes (items per thread) on one CUDA card.
+"""A/B of the kernels' launch shapes on one CUDA card, and of a
+block-major schedule of the float encode.
 
     python3 -m minnow_torch.tools.ab_launch [--reps N]
 
 At the flagship block shape (4096 blocks x 2^17 elements, 18 bits) each
-launch runs at every value of its sweep of items per thread, in two
-passes of opposite order (median of N each, CUDA events), and its output
-must be bitwise equal to that at the shipped value.  The constants swept
-are ``encode.STATS_PER_THREAD`` (K1 stats), ``encode.PACK_PER_THREAD``
-(K1 pack and K3), ``decode.DECODE_PER_THREAD`` (K2, uniform and none) and
+launch runs at every value of its sweep, in two passes of opposite order
+(median of N each, CUDA events), and its output must be bitwise equal to
+that at the shipped value.  The constants swept are
+``encode.STATS_PER_THREAD`` (elements per thread of K1's stats launch),
+``encode.PACK_PER_THREAD`` (words per thread of K3),
+``decode.DECODE_PER_THREAD`` (K2, uniform and none) and
 ``decode.UNPACK_PER_THREAD`` (K4, on K3's words at 18 bits and at 54
 bits); they are set back afterwards.  A 2 GiB device copy gives the
-card's memory rate, and the host plans of K1 and K3 are timed beside
-them.
+card's memory rate; K1's plan launch is timed beside the host's
+``plan_float``, K3's host plan alone, and K1's pack and K5 (which size
+their own grids, one persistent CTA for each the card holds) once.
+
+The block-major schedule asks whether x can be read from device memory
+once: the float encode runs chunk by chunk (K1's stats, plan and pack, or
+with ``reuse_q`` the stats storing pixels, the plan and K5, on 8 to 64
+blocks at a time, so that the pack's read of x or q hits the L2), as one
+CUDA graph, which leaves out the host's cost of the many launches; its
+time stands beside the whole-batch launches' in the same run.  Each
+chunk packs into its own buffer: the words are those of the whole batch,
+their offsets are not chained.
 
 The last lines are the nvidia-smi line and one JSON object with every
 time in milliseconds.  Compare numbers only within one run.
@@ -31,8 +43,7 @@ from ..utils.device import card_info, cuda_device, time_ms
 
 SHAPE = (4096, 1 << 17)
 SWEEPS = {
-    "K1 stats": (encode, "STATS_PER_THREAD", [1, 2, 4, 8, 16, 32, 64]),
-    "K1 pack": (encode, "PACK_PER_THREAD", [1, 2, 4, 8, 16]),
+    "K1 stats": (encode, "STATS_PER_THREAD", [4, 8, 16, 32, 64]),
     "K3 pack": (encode, "PACK_PER_THREAD", [1, 2, 4, 8, 16]),
     "K2 uniform": (decode, "DECODE_PER_THREAD", [1, 2, 4, 8, 16, 32]),
     "K2 none": (decode, "DECODE_PER_THREAD", [1, 2, 4, 8, 16, 32]),
@@ -55,7 +66,7 @@ def sweep(label, fn, reps):
         for v in order:
             setattr(module, attr, v)
             if not torch.equal(_bits(fn()), want):
-                raise AssertionError("%s at %d per thread differs from %d"
+                raise AssertionError("%s at %d differs from %d"
                                      % (label, v, shipped))
             times[v].append(time_ms(fn, reps))
     setattr(module, attr, shipped)
@@ -81,6 +92,48 @@ def unpack_sweep(out, label, x, lens, reps):
     if not torch.equal(dec(), x):
         raise AssertionError("%s: the round trip differs" % label)
     out[label] = sweep(label, dec, reps)
+
+
+def block_major(x, params, lens, want, reps):
+    """Times of the float encode chunk by chunk, as one CUDA graph, and of
+    the same launches on the whole batch; ``want`` is the (B, row) words
+    every chunk's pack must reproduce."""
+    b, n = x.shape
+    row = want.shape[1]
+
+    def launches(s, reuse_q, q):
+        p = codec.BlockParams(*(v[s] for v in params))
+        stats = encode._launch_stats(x[s], p, lens[s], q if reuse_q else None)
+        plan = encode._launch_plan(stats, p, lens[s])
+        return encode._launch_pack(q if reuse_q else x[s], p, lens[s], plan,
+                                   (s.stop - s.start) * row)
+
+    out = {}
+    for reuse_q in (False, True):
+        for chunk in (8, 16, 32, 64, b):
+            q = torch.empty((chunk, n), dtype=torch.int32, device=x.device)
+            slices = [slice(i, i + chunk) for i in range(0, b, chunk)]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                got = launches(slices[-1], reuse_q, q)
+            torch.cuda.current_stream().wait_stream(side)
+            if not torch.equal(got, want[slices[-1]].reshape(-1)):
+                raise AssertionError("chunk of %d blocks, reuse_q %s: the "
+                                     "words differ" % (chunk, reuse_q))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                kept = [launches(s, reuse_q, q) for s in slices]
+            ms = time_ms(graph.replay, reps)
+            label = "%s, %s" % ("reuse_q" if reuse_q else "K1",
+                                "whole batch" if chunk == b
+                                else "chunks of %d" % chunk)
+            out[label] = ms
+            print("block-major %s: %.3f ms (%d launches in the graph)"
+                  % (label, ms, 3 * len(slices)), flush=True)
+            del graph, kept, q
+            torch.cuda.empty_cache()
+    return out
 
 
 def host_ms(fn, reps):
@@ -113,12 +166,22 @@ def main(argv=None):
     stats = encode.float_stats(x, params, lens)
     out["plan_float_ms"] = host_ms(
         lambda: encode.plan_float(stats, params, lens), reps)
+    out["float_plan_ms"] = time_ms(
+        lambda: encode.float_plan(stats, params, lens), reps)
     plan = encode.plan_float(stats, params, lens)
     out["K1 stats"] = sweep("K1 stats",
                             lambda: encode.float_stats(x, params, lens), reps)
-    out["K1 pack"] = sweep(
-        "K1 pack", lambda: encode.pack_float(x, params, lens, plan), reps)
+    out["K1 pack"] = time_ms(
+        lambda: encode.pack_float(x, params, lens, plan), reps)
+    q = torch.empty((b, n), dtype=torch.int32, device=dev)
+    encode.float_stats(x, params, lens, q_out=q)
+    out["K5"] = time_ms(
+        lambda: encode.pack_float_q(q, params, lens, plan), reps)
+    print("K1 pack %.3f ms, K5 %.3f ms" % (out["K1 pack"], out["K5"]),
+          flush=True)
+    del q
     words = encode.pack_float(x, params, lens, plan).view(b, -1)
+    out["block_major"] = block_major(x, params, lens, words, reps)
     mins = torch.from_numpy(plan.mins).to(dev)
     k1, k2 = codec.dither_keys(np.arange(b), 0, dev)
     for mode in ("uniform", "none"):
@@ -142,8 +205,9 @@ def main(argv=None):
                        dtype=torch.int64)
     xw[:, 0], xw[:, 1] = 0, (1 << 54) - 1
     unpack_sweep(out, "K4 54 bits", xw, lens, reps)
-    print("host plans: plan_float %.3f ms, plan_int %.3f ms"
-          % (out["plan_float_ms"], out["plan_int_ms"]))
+    print("plans: plan_float on the host %.3f ms, K1's plan launch %.3f "
+          "ms, plan_int %.3f ms"
+          % (out["plan_float_ms"], out["float_plan_ms"], out["plan_int_ms"]))
     smi = card_info()
     out["card"] = smi
     print(smi)

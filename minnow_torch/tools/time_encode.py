@@ -1,0 +1,215 @@
+"""Times of the float encode (K1, K5) on one CUDA card, for one checkout
+or for two in turns.
+
+    python3 minnow_torch/tools/time_encode.py [--reps N] [--root DIR]
+    python3 minnow_torch/tools/time_encode.py --compare OTHER_CHECKOUT
+
+With ``--compare`` the script runs itself four times as a subprocess, on
+the other checkout, this one, this one and the other again (so that a
+drift of the card shows), each building its own kernels, and prints the
+two checkouts' times side by side: a before and after inside one run, on
+one card.  It uses only what both generations of ``minnow_torch.ops.encode``
+have (``float_stats``, ``plan_float``, ``pack_float``, ``pack_float_q``,
+``encode_float_group``), and K1's plan launch where there is one.
+
+Shapes, all CUDA events, median of N after warm-up:
+
+* flagship: 4096 blocks x 2^17 elements, periodic, 250,000 pixels (18
+  bits): each launch alone, the whole call, the ``reuse_q`` call, the host
+  plan on the host clock;
+* text_to_minh: the 8 float columns of one row-block of 853,007 halos
+  (two log columns, three periodic positions, three velocities);
+* minh_to_bnd: one position column of 512 ragged cells of 3,619..4,026;
+* convert_snapshot: one axis of a minp file, 512 blocks of 4,096.
+
+For the last three the whole call only, and beside it the host's wall
+time of the call (it ends in a device-to-host copy of the plan).  Each
+shape also gets its bound: the bytes of x and of the packed words over
+the H100's 3.35 TB/s of device memory.  The last lines are the nvidia-smi
+line and one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+
+def _batches(rng):
+    """name -> (x, low, high, pixels, periodic, lens) as numpy."""
+    out = {}
+    n = 853_007
+    cols = [(5.0, 16.0, 0.001, False), (-2.0, 5.0, 0.001, False)] \
+        + [(0.0, 250.0, 0.001, True)] * 3 + [(-1e4, 1e4, 0.1, False)] * 3
+    low = np.array([c[0] for c in cols], np.float32)
+    high = np.array([c[1] for c in cols], np.float32)
+    pixels = np.array([np.ceil(np.float32(h - lo) / np.float32(c[2]))
+                       for c, lo, h in zip(cols, low, high)], np.int64)
+    x = np.stack([rng.uniform(lo, h, n) for lo, h in zip(low, high)])
+    out["text_to_minh (8, 853007)"] = (
+        x.astype(np.float32), low, high, pixels,
+        np.array([c[3] for c in cols]), np.full(8, n, np.int64))
+    lens = rng.integers(3619, 4027, 512)
+    lens[0] = 4026
+    x = rng.uniform(0, 249.9, (512, 4026)).astype(np.float32)
+    x[np.arange(4026)[None, :] >= lens[:, None]] = 0
+    out["minh_to_bnd (512, <=4026)"] = (
+        x, np.zeros(512), np.full(512, 250.0), np.full(512, 250000),
+        np.ones(512, bool), lens)
+    out["convert_snapshot (512, 4096)"] = (
+        rng.uniform(0, 249.9, (512, 4096)).astype(np.float32),
+        np.zeros(512), np.full(512, 250.0), np.full(512, 250000),
+        np.ones(512, bool), np.full(512, 4096, np.int64))
+    return out
+
+
+def bound_ms(x, words):
+    """The least milliseconds for reading ``x`` and writing ``words`` once
+    at 3.35 TB/s."""
+    return (x.numel() + words.numel()) * 4 / 3.35e12 * 1e3
+
+
+def measure(reps):
+    import torch
+
+    from minnow_torch.ops import codec, encode
+    from minnow_torch.utils.device import card_info, cuda_device, time_ms
+
+    dev = cuda_device()
+    group = encode.encode_float_group
+    has_capacity = "capacity" in inspect.signature(group).parameters
+
+    def call(x, params, lens, capacity, **kw):
+        if has_capacity:
+            kw["capacity"] = capacity
+        return group(x, params, lens, **kw)
+
+    def wall_ms(fn):
+        ts = []
+        for _ in range(reps + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts[2:]))
+
+    out = {"card": card_info()}
+    b, n = 4096, 1 << 17
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.rand((b, n), generator=gen, device=dev) * 249.9
+    params = codec.block_params(np.zeros(b), np.full(b, 250.0),
+                                np.full(b, 250000), np.ones(b, bool), dev)
+    lens = torch.full((b,), n, dtype=torch.int64, device=dev)
+    capacity = b * ((18 * n + 31) // 32)
+    stats = encode.float_stats(x, params, lens)
+    plan = encode.plan_float(stats, params, lens)
+    if not (plan.bits == 18).all():
+        raise AssertionError("flagship widths %s" % set(plan.bits))
+    q = torch.empty((b, n), dtype=torch.int32, device=dev)
+    t = {"stats launch": time_ms(
+             lambda: encode.float_stats(x, params, lens), reps),
+         "pack launch": time_ms(
+             lambda: encode.pack_float(x, params, lens, plan), reps),
+         "stats launch storing pixels": time_ms(
+             lambda: encode.float_stats(x, params, lens, q_out=q), reps),
+         "K5": time_ms(
+             lambda: encode.pack_float_q(q, params, lens, plan), reps),
+         "K1 call": time_ms(lambda: call(x, params, lens, capacity), reps),
+         "K1 call, host clock": wall_ms(
+             lambda: call(x, params, lens, capacity)),
+         "reuse_q call": time_ms(
+             lambda: call(x, params, lens, capacity, reuse_q=True), reps),
+         "plan_float, host clock": wall_ms(
+             lambda: encode.plan_float(stats, params, lens))}
+    if hasattr(encode, "float_plan"):
+        t["plan launch"] = time_ms(
+            lambda: encode.float_plan(stats, params, lens), reps)
+    words = call(x, params, lens, capacity)[0]
+    t["bound"] = bound_ms(x, words)
+    out["flagship words checksum"] = int(words.to(torch.int64).sum())
+    del x, q, words
+    torch.cuda.empty_cache()
+    out["flagship (4096, 131072)"] = t
+
+    for name, (xn, low, high, pixels, periodic, ln) in _batches(
+            np.random.default_rng(3)).items():
+        params = codec.block_params(low, high, pixels, periodic, dev)
+        xt = torch.from_numpy(xn).to(dev)
+        lt = torch.from_numpy(ln).to(dev)
+        widest = np.where(periodic, [int(p - 1).bit_length() for p in pixels],
+                          32)
+        capacity = int(((widest * ln + 31) // 32).sum())
+        words, plan = call(xt, params, lt, capacity)
+        out[name] = {
+            "K1 call": time_ms(lambda: call(xt, params, lt, capacity), reps),
+            "K1 call, host clock": wall_ms(
+                lambda: call(xt, params, lt, capacity)),
+            "bound": bound_ms(xt, words),
+            "words checksum": int(words.to(torch.int64).sum()),
+            "widths": sorted({int(v) for v in plan.bits})}
+    return out
+
+
+def compare(other, reps):
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    runs = []
+    for label, root in (("other", other), ("this", here), ("this", here),
+                        ("other", other)):
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--root", root,
+             "--reps", str(reps)], check=True, capture_output=True,
+            text=True, timeout=900)
+        runs.append((label, json.loads(res.stdout.strip().splitlines()[-1])))
+    print("ms; columns: other, this, this, other (in the order run)")
+    for shape, first in runs[0][1].items():
+        if not isinstance(first, dict):
+            if len({json.dumps(r[shape]) for _, r in runs}) != 1:
+                raise AssertionError("%s differs between the runs: %s"
+                                     % (shape, [r[shape] for _, r in runs]))
+            continue
+        keys = []
+        for _, r in runs:
+            keys += [k for k in r[shape] if k not in keys]
+        for k in keys:
+            vals = [r[shape].get(k) for _, r in runs]
+            if isinstance(vals[0] if vals[0] is not None else vals[1], float):
+                print("%s | %s | %s" % (shape, k, " | ".join(
+                    "-" if v is None else "%.4f" % v for v in vals)))
+            elif len({json.dumps(v) for v in vals}) != 1:
+                raise AssertionError("%s, %s differs between the runs: %s"
+                                     % (shape, k, vals))
+    print(runs[0][1]["card"])
+    print(json.dumps({"order": [label for label, _ in runs],
+                      "runs": [r for _, r in runs]}))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=9)
+    ap.add_argument("--root", default=None,
+                    help="the checkout whose minnow_torch is timed")
+    ap.add_argument("--compare", default=None,
+                    help="another checkout to time in turns with this one")
+    args = ap.parse_args(argv)
+    if args.compare:
+        compare(os.path.abspath(args.compare), args.reps)
+        return
+    root = args.root or os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    sys.path.insert(0, os.path.abspath(root))
+    out = measure(args.reps)
+    print(out["card"])
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

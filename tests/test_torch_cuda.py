@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each against its plain version,
-and the converter and reader against the host codec, bitwise.
+and the converters and readers against the port's host mode, bitwise.
 
 These tests need a CUDA device and skip without one.  The machine with
 the card has no jax, and tests/conftest.py imports it, so run them there
@@ -12,12 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from minnow_tpu.cli import minh_to_bnd as ref_minh_to_bnd
-from minnow_tpu.cli import text_to_minh as ref_text_to_minh
-from minnow_tpu.core import spec
-from minnow_tpu.formats import minh
+import chip_smoke
 from minnow_torch.cli import minh_to_bnd, text_to_minh
-from minnow_torch.formats import minh_device
+from minnow_torch.core import spec
+from minnow_torch.formats import minh, minh_device
 from minnow_torch.ops import bitpack, codec, decode, encode
 from minnow_torch.parallel.pipeline import BlockEncoder
 from test_torch_minh_to_bnd import BND, CELLS, write_catalog
@@ -68,6 +66,82 @@ def test_k1_matches_plain(dev, n):
     _same(encode.pack_float(xt, params, lt, plan),
           encode.pack_float_plain(xt, params, lt, plan))
     assert encode.K1_LAUNCHES == before + (2 if plan.total else 1)
+
+
+def _check_float_encode(dev, batch):
+    """K1's three launches, K5 and the whole call on one batch, against
+    the plain versions and the host's plan."""
+    x, low, high, pixels, periodic, lens = batch
+    params = codec.block_params(low, high, pixels, periodic, dev)
+    xt, lt = torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev)
+    q = torch.zeros(x.shape, dtype=torch.int32, device=dev)
+    stats = encode.float_stats(xt, params, lt, q_out=q)
+    _same(stats, encode.float_stats_plain(xt, params, lt))
+    plan = encode.plan_float(stats, params, lt)
+    before = encode.K1_LAUNCHES
+    dplan = encode.float_plan(stats, params, lt)
+    assert encode.K1_LAUNCHES == before + 1
+    assert torch.equal(dplan, encode.float_plan_plain(stats, params, lt))
+    assert chip_smoke.plan_eq(encode.read_plan(dplan), plan)
+    words = encode.pack_float(xt, params, lt, plan)
+    _same(words, encode.pack_float_plain(xt, params, lt, plan))
+    _same(encode.pack_float_q(q, params, lt, plan), words)
+    for reuse_q in (False, True):
+        before = encode.K1_LAUNCHES, encode.K5_LAUNCHES
+        w, p = encode.encode_float_group(xt, params, lt, reuse_q=reuse_q,
+                                         capacity=plan.total)
+        packed = 1 if plan.total else 0
+        assert (encode.K1_LAUNCHES, encode.K5_LAUNCHES) == (
+            before[0] + 2 + (0 if reuse_q else packed),
+            before[1] + (packed if reuse_q else 0))
+        _same(w, words)
+        assert chip_smoke.plan_eq(p, plan)
+    return plan
+
+
+@pytest.mark.parametrize("k", range(1, 33))
+def test_float_encode_at_every_width(dev, k):
+    rng = np.random.default_rng(k)
+    batch = chip_smoke.wide_batch(rng, 3001) if k == 32 \
+        else chip_smoke.k1_batch(rng, k, 3001)
+    plan = _check_float_encode(dev, batch)
+    assert k in set(plan.bits[plan.valid])
+
+
+@pytest.mark.parametrize("k", [1, 7, 18, 30])
+def test_float_encode_on_ragged_edges(dev, k):
+    """Lengths around the pack's word and tile edges, up to 2^17 - 1, with
+    a block that is not certified beside valid ones."""
+    rng = np.random.default_rng(50 + k)
+    lens = np.array([1, 31, 32, 33, 4095, 4096, 4097, 0], np.int64)
+    _check_float_encode(dev, chip_smoke.k1_batch(rng, k, 4097)[:5] + (lens,))
+    for batch in chip_smoke.edge_batches(rng):
+        plan = _check_float_encode(dev, batch)
+        assert not plan.valid[4] and plan.valid[0]
+
+
+def test_float_encode_of_no_blocks(dev):
+    x = torch.zeros((0, 16), device=dev)
+    params = codec.block_params([], [], [], [], dev)
+    lens = torch.zeros(0, dtype=torch.int64, device=dev)
+    for reuse_q in (False, True):
+        words, plan = encode.encode_float_group(x, params, lens,
+                                                reuse_q=reuse_q)
+        assert words.numel() == plan.total == plan.max_words == 0
+        assert plan.bits.shape == (0,)
+    torch.cuda.synchronize()
+
+
+def test_float_encode_refuses_a_capacity_too_small(dev):
+    rng = np.random.default_rng(2)
+    x, low, high, pixels, periodic, lens = _float_batch(rng, 5000)
+    params = codec.block_params(low, high, pixels, periodic, dev)
+    xt, lt = torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev)
+    words, plan = encode.encode_float_group(xt, params, lt)
+    assert words.numel() == plan.total
+    with pytest.raises(ValueError, match="capacity"):
+        encode.encode_float_group(xt, params, lt, capacity=plan.total - 1)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("mode", list(codec.DITHER_MODES))
@@ -191,12 +265,11 @@ def test_text_to_minh_device_and_read_on_card(dev, tmp_path):
     cfg = text_to_minh.parse_config(str(config))
     idx = text_to_minh.open_index(cfg["NameIndex"])
     host = tmp_path / "host.minh"
-    # the reference's own host converter, which imports no jax without
-    # its device flag
-    ref_text_to_minh.convert_file(
+    # the same converter in host mode
+    text_to_minh.convert_file(
         cfg, idx, text_to_minh.parse_types(cfg["TypeIndex"], idx),
         text_to_minh.parse_vars("all", idx),
-        str(tmp_path / "hlist_1.0.list"), str(host), device=False)
+        str(tmp_path / "hlist_1.0.list"), str(host), None)
     device_file = out / "hlist_1.0.minh"
     assert device_file.read_bytes() == host.read_bytes()
     for mode in codec.DITHER_MODES:
@@ -235,8 +308,8 @@ def test_minh_to_bnd_device_matches_reference_host(dev, tmp_path, mode):
     src = write_catalog(tmp_path, n=3000)
     ref = tmp_path / "ref.bnd.minh"
     port = tmp_path / "port.bnd.minh"
-    ref_minh_to_bnd.convert_file(str(src), str(ref), CELLS, BND,
-                                 device=False, dither=mode)
+    minh_to_bnd.convert_file(str(src), str(ref), CELLS, BND, None,
+                             dither=mode)
     before = decode.K4_LAUNCHES, encode.K3_LAUNCHES
     minh_to_bnd.convert_file(str(src), str(port), CELLS, BND, dev,
                              dither=mode)
@@ -250,8 +323,7 @@ def test_read_ints_on_card(dev, tmp_path):
     reader."""
     src = write_catalog(tmp_path, n=3000)
     bnd = tmp_path / "b.bnd.minh"
-    ref_minh_to_bnd.convert_file(str(src), str(bnd), CELLS, BND,
-                                 device=False)
+    minh_to_bnd.convert_file(str(src), str(bnd), CELLS, BND, None)
     for fname in (src, bnd):
         r = minh.open(str(fname))
         try:

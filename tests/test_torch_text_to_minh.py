@@ -1,8 +1,8 @@
 """The port's text_to_minh, end to end on the CPU: the file it writes
 equals the host codec's and the JAX package's --device file byte for
 byte, --device refuses to run without CUDA, and the port (converter,
-readers, minh_to_bnd, the minp converter and reader) runs with jax
-unimportable."""
+readers, minh_to_bnd, the minp converter and reader) runs with jax and
+minnow_tpu unimportable."""
 
 import os
 import subprocess
@@ -112,8 +112,8 @@ BLOCK_JAX = textwrap.dedent("""
 
     class NoJax(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
-                raise ImportError("jax is refused here: " + name)
+            if name.split(".")[0] in ("jax", "jaxlib", "minnow_tpu"):
+                raise ImportError("refused here: " + name)
 
     sys.meta_path.insert(0, NoJax())
     sys.path.insert(0, sys.argv[1])
@@ -121,8 +121,7 @@ BLOCK_JAX = textwrap.dedent("""
     import numpy as np
     import minnow_torch
     from minnow_torch.cli import inspect_minh, minh_to_bnd, text_to_minh
-    from minnow_tpu.formats import minh
-    from minnow_torch.formats import minh_device
+    from minnow_torch.formats import minh, minh_device
     from minnow_torch.ops import _build, bitpack, codec, decode, encode
     from minnow_torch.parallel import pipeline
     from minnow_torch.utils import device
@@ -153,10 +152,9 @@ BLOCK_JAX = textwrap.dedent("""
         open(tmp / "port.bnd.minh", "rb").read()
     inspect_minh.inspect(str(tmp / "port.bnd.minh"), ["pid"], "cpu")
 
-    from minnow_tpu.formats import minp
-    from minnow_tpu.ingest import lgadget2, snapshot
     from minnow_torch.cli import convert_snapshot
-    from minnow_torch.formats import minp_device
+    from minnow_torch.formats import minp, minp_device
+    from minnow_torch.ingest import lgadget2, snapshot
     rng = np.random.default_rng(1)
     n = 64
     hd = minp.Header(l=50.0, omega_m=0.3, n_side=4, n_total=n)
@@ -176,7 +174,8 @@ BLOCK_JAX = textwrap.dedent("""
         with minp.open(str(tmp / "minp" / ("%s_0.minp" % kind))) as r:
             got = minp_device.read_vectors(r, "cpu").numpy()
             assert (got.view(np.uint32) == r.vectors().view(np.uint32)).all()
-    loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "minnow_tpu")]
     assert not loaded, loaded
     print("NO_JAX_OK")
 """)
