@@ -58,13 +58,43 @@ Phases, each of which raises at its first failure:
    and velocities of one file cell within dx and dv of the source.  K1
    and K2 must have been launched by this phase.  Before it, K1 and K2
    are checked and timed at its shapes (one axis of a file: 512 blocks
-   of 4,096; a width bucket of them).
+   of 4,096; a width bucket of them);
+7. the multi-process path: ``minnow_torch.tools.multiprocess_gather_check``
+   with 4 worker processes on the one card (gloo between them) on a
+   catalog of 999,888 rows in 11 ragged row-blocks (``int`` IDs from
+   2^53 + 1 wider than 32 bits, x periodic at L 250 and 0.001, a log
+   mass), dealt 3/3/3/2, once in ``gather`` and once in ``allgather``:
+   each rank encodes its row-blocks with ``BlockEncoder``, rank 0 writes
+   one minh file that must be byte-identical to a single-process host
+   write, and every rank decodes its row-blocks back with
+   ``decode_int_blocks`` / ``decode_float_blocks``, bitwise equal to the
+   host reader.  Each rank certifies its kernels, sets its launch counts
+   to zero, drives the path and reports the counts: K1 to K4 must be
+   non-zero on every rank.  A worker that exits non-zero or outlives its
+   limit ends the script.  Before the workers, K1 to K4 are checked and
+   timed as in 4 at the shapes the first and the last rank give them: K1
+   and K3 on a rank's ragged batch, K2 and K4 on one block a call.  Then,
+   in this process with the counts at zero:
+   ``BlockEncoder([card, card])`` (a stream per share) on the x and id
+   columns of phase 5's 512 ragged cells must equal ``BlockEncoder(card)``
+   byte for byte and its decode methods the values, and ``text_to_minh
+   --device --jobs=2`` on phase 4's and on phase 5's catalog (each under
+   two names, so two jobs share one encoder) must write the files those
+   phases wrote;
+8. certification: ``validate.validate_backend`` on the card (quantize,
+   dequantize, pack, and every kernel at every width against
+   ``core.spec``) and ``selfcheck.kernel_ok`` of the three families, both
+   printed; ``verify_minnow.verify(deep=True)`` finds no problem in one
+   minh, one boundary and one minp file of the earlier phases and finds
+   some in a copy cut short.
 
-The runs of phases 4, 5 and 6 and of K5's path in phase 3 each start the
-launch counts at zero and read them at their end.  The last three lines
-are the nvidia-smi line, a JSON line with each kernel's numbers
-(launches: the sum over those four runs; ``bound_ms``: the least time
-the card could take for the flagship call, from its bytes and
+The three self-check families are certified once right after phase 3's
+sweeps, outside every timed region and every counted run.  The runs of
+phases 4, 5, 6 and 7 and of K5's path in phase 3 each start the launch
+counts at zero and read them at their end.  The last three lines are the
+nvidia-smi line, a JSON line with each kernel's numbers (launches: the
+sum over those runs, phase 7's summed over its ranks; ``bound_ms``: the
+least time the card could take for the flagship call, from its bytes and
 operations), and ``{"ok": true, "device":
 ...}``.  Without a CUDA device, or outside a checkout of the repository,
 it fails before printing any of them.  Files go to ``build/chip_smoke/``
@@ -73,7 +103,8 @@ in the checkout.
 The host side of every comparison is the port's own host mode (the same
 CLI without ``--device``, the ``formats`` readers on numpy), which the
 CPU tests hold byte for byte to ``minnow_tpu``'s.  The script checks at
-the end that no module of jax, jaxlib or minnow_tpu was imported.
+the end that no module of jax, jaxlib or minnow_tpu was imported, here
+or in any worker of phase 7.
 """
 
 import contextlib
@@ -92,12 +123,15 @@ sys.path.insert(0, ROOT)
 
 from minnow_torch.cli import convert_snapshot, inspect_minh  # noqa: E402
 from minnow_torch.cli import minh_to_bnd, text_to_minh  # noqa: E402
+from minnow_torch.cli import verify_minnow  # noqa: E402
 from minnow_torch.core import spec  # noqa: E402
 from minnow_torch.formats import minh, minh_device, minp  # noqa: E402
 from minnow_torch.formats import minp_device  # noqa: E402
 from minnow_torch.ingest import lgadget2, snapshot  # noqa: E402
 from minnow_torch.ops import _build, bitpack, codec, decode  # noqa: E402
-from minnow_torch.ops import encode  # noqa: E402
+from minnow_torch.ops import encode, selfcheck, validate  # noqa: E402
+from minnow_torch.parallel.pipeline import BlockEncoder  # noqa: E402
+from minnow_torch.tools import multiprocess_gather_check  # noqa: E402
 from minnow_torch.utils.device import (card_info, cuda_device,  # noqa: E402
                                        time_ms)
 from minnow_torch.utils.profiling import StageTimer  # noqa: E402
@@ -112,6 +146,9 @@ KERNELS = ("K1", "K2", "K3", "K4", "K5")
 # file_cells 2 and sub_cells 8 with position and velocity steps dx, dv
 SNAP_SIDE, SNAP_L, SNAP_FILES = 256, 250.0, 8
 FILE_CELLS, SUB_CELLS, SNAP_DX, SNAP_DV = 2, 8, 0.001, 1.0
+# phase 7: worker processes on the one card, the rows of their catalog (the
+# check's 11 ragged row-blocks scaled by 1,776) and each run's time limit
+MP_PROCS, MP_ROWS, MP_LIMIT = 4, 999_888, 300
 
 
 def log(*args):
@@ -1405,8 +1442,304 @@ def snapshot_path(dev):
     log("snapshot path launches: %s; %.3f s in all"
         % (launches, time.perf_counter() - t_start))
     need(launches, ("K1", "K2"), "the snapshot path")
+    # phase 8 verifies one of the files
+    os.replace(os.path.join(dev_dir, "x_0.minp"),
+               os.path.join(WORK, "x_0.minp"))
     shutil.rmtree(work)
     return launches
+
+
+# -- phase 7: the multi-process path and the multi-device encoder -----------
+
+
+def check_multiprocess_shapes(dev):
+    """K1 to K4 against their plain versions at the shapes phase 7's
+    workers give them, and timed there, on the batches of the first rank
+    (3 row-blocks) and of the last (2), made as the workers make them
+    (``multiprocess_gather_check.rank_batches``): K1 on (6 | 4, 126,096)
+    ragged rows that alternate the position and the log-mass config, K3 on
+    the (3 | 2, 126,096) ragged ID batch at 37 bits; K2 (in the three
+    modes) and K4 on one block a call, (1, n), as the sharded read-back
+    decodes them, from the words K1 and K3 wrote; K4 also back to K3's
+    input."""
+    blocks = multiprocess_gather_check.make_catalog(MP_ROWS)
+    counts = multiprocess_gather_check.owner_counts(MP_PROCS)
+    t = []
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for rank in (0, MP_PROCS - 1):
+        first = sum(counts[:rank])
+        ib, ilens, fb, flens, flow, fhigh, fpix = \
+            multiprocess_gather_check.rank_batches(
+                blocks, range(first, first + counts[rank]))
+        # BlockEncoder's call keeps the periodic default
+        params = codec.block_params(flow, fhigh, fpix,
+                                    np.ones(len(fb), bool), dev)
+        xt, lens = put(fb), put(flens)
+        stats = encode.float_stats(xt, params, lens)
+        err = int_err(stats, encode.float_stats_plain(xt, params, lens))
+        plan = encode.plan_float(stats, params, lens)
+        words = encode.pack_float(xt, params, lens, plan)
+        err = max(err, int_err(words, encode.pack_float_plain(
+            xt, params, lens, plan)))
+        if err or not plan.valid.all():
+            raise AssertionError("K1 at rank %d's shape: max err %d, valid "
+                                 "%s" % (rank, err, plan.valid))
+        cols = []
+        for i, n in enumerate(flens):
+            nw = bitpack.words_per_block(int(plan.bits[i]), int(n))
+            off = int(plan.offsets[i])
+            col = (words[off:off + nw][None].clone(), put(plan.mins[i:i + 1]),
+                   codec.BlockParams(*(v[i:i + 1] for v in params)),
+                   int(plan.bits[i]), int(n))
+            keys = codec.dither_keys(np.zeros(1, np.int64), 0, dev)
+            for mode in codec.DITHER_MODES:
+                float_err(decode.decode_float_group(*col, mode, *keys),
+                          decode.decode_float_plain(*col, mode, *keys))
+            cols.append((col, keys))
+
+        it, ilt = put(ib), put(ilens)
+        iwords, iplan = encode.encode_int_group(it, ilt)
+        err = int_err(iwords, encode.delta_pack_int_plain(it, ilt, iplan))
+        if err or iplan.bits.min() <= 32:
+            raise AssertionError("K3 at rank %d's shape: max err %d, widths "
+                                 "%s" % (rank, err, iplan.bits))
+        icols = []
+        for i, n in enumerate(ilens):
+            nw = bitpack.words_per_block(int(iplan.bits[i]), int(n))
+            off = int(iplan.offsets[i])
+            icol = (iwords[off:off + nw][None].clone(),
+                    put(iplan.mins[i:i + 1]), int(iplan.bits[i]), int(n))
+            got = decode.decode_int_group(*icol)
+            same_ints(got, decode.decode_int_plain(*icol),
+                      "K4 on block %d of rank %d" % (i, rank))
+            same_ints(got, it[i:i + 1, :int(n)],
+                      "K4 round trip of block %d of rank %d" % (i, rank))
+            icols.append(icol)
+
+        def plain_enc():
+            st = encode.float_stats_plain(xt, params, lens)
+            encode.pack_float_plain(xt, params, lens,
+                                    encode.plan_float(st, params, lens))
+
+        (col, keys), icol = cols[0], icols[0]
+        shape = "(%d, %d)" % tuple(xt.shape)
+        t += [("K1 call, %s" % shape,
+               time_ms(lambda: encode.encode_float_group(xt, params, lens))),
+              ("plain", time_ms(plain_enc, reps=3, warmup=1)),
+              ("K3 call, (%d, %d) at %d bits" % (*it.shape, icol[2]),
+               time_ms(lambda: encode.encode_int_group(it, ilt))),
+              ("plain", time_ms(lambda: encode.delta_pack_int_plain(
+                  it, ilt, iplan), reps=3, warmup=1)),
+              ("K2 none, (1, %d) at %d bits" % (col[4], col[3]),
+               time_ms(lambda: decode.decode_float_group(*col, "none",
+                                                         *keys))),
+              ("plain", time_ms(lambda: decode.decode_float_plain(
+                  *col, "none", *keys))),
+              ("K4, (1, %d) at %d bits" % (icol[3], icol[2]),
+               time_ms(lambda: decode.decode_int_group(*icol))),
+              ("plain", time_ms(lambda: decode.decode_int_plain(*icol)))]
+        log("multi-process shapes, rank %d: K1 %s at widths %s, K3 (%d, %d) "
+            "at widths %s, rows of %s; K2 in three modes and K4 on each "
+            "block alone: bitwise equal to the plain versions, K4 to K3's "
+            "input" % (rank, shape, plan.bits.tolist(), *it.shape,
+                       iplan.bits.tolist(), ilens.tolist()))
+    log("multi-process shapes, ms (CUDA events, median of 7; the plain "
+        "versions of K1 and K3 median of 3; each 'plain' is the plain "
+        "version of the entry before it): %s"
+        % ", ".join("%s %.4f" % kv for kv in t))
+
+
+def multiprocess_runs():
+    """``multiprocess_gather_check`` with ``MP_PROCS`` workers on the card
+    in each gather mode.  Returns the launches summed over ranks and
+    modes."""
+    work = os.path.join(WORK, "multiprocess")
+    os.makedirs(work)
+    total = dict.fromkeys(KERNELS, 0)
+    for mode in ("gather", "allgather"):
+        report = multiprocess_gather_check.run(
+            MP_PROCS, mode, "cuda", rows=MP_ROWS, timeout=MP_LIMIT,
+            work_dir=work)
+        if report["counts"] != [3, 3, 3, 2]:
+            raise AssertionError("owner counts %s" % report["counts"])
+        for r in report["ranks"]:
+            need(r["launches"], KERNELS[:4], "rank %d of the %s run"
+                 % (r["rank"], mode))
+            if not r["device"].startswith("cuda") or min(
+                    r["int_widths"]) <= 32:
+                raise AssertionError("rank %d ran on %s at int widths %s"
+                                     % (r["rank"], r["device"],
+                                        r["int_widths"]))
+            for k in KERNELS:
+                total[k] += r["launches"][k]
+        log("multi-process %s: %d processes, %d rows in blocks %s, file of "
+            "%d bytes byte-identical to the single-process host write, "
+            "read-back bit-exact on every rank; %.1f s for the workers; "
+            "payload bytes per rank %s"
+            % (mode, MP_PROCS, report["rows"], report["counts"],
+               report["file_bytes"], report["seconds"],
+               [r["bytes_sent"] for r in report["ranks"]]))
+        for r in report["ranks"]:
+            log("  rank %d: %s; launches %s; ID widths %s"
+                % (r["rank"], ", ".join("%s %.3f s" % kv
+                                        for kv in r["seconds"].items()),
+                   r["launches"], r["int_widths"]))
+    return total
+
+
+def same_blocks(a, b, what):
+    if a.payloads != b.payloads or not all(
+            np.array_equal(getattr(a, k), getattr(b, k))
+            for k in ("mins", "bits", "lens")):
+        raise AssertionError("%s: the encoded blocks differ" % what)
+
+
+def two_device_encoder(dev):
+    """``BlockEncoder([dev, dev])`` against ``BlockEncoder(dev)`` on the x
+    and id columns of phase 5's boundary file, cell by cell (512 ragged
+    blocks): byte for byte, and both decode methods give the host
+    reader's values."""
+    bnd = os.path.join(WORK, "boundary", "bnd_device",
+                       "hlist_1.00000.bnd.minh")
+    # midpoint values sit at their pixels' centres, so they quantize back
+    # to the pixels they came from
+    r = minh.open(bnd, dither="midpoint")
+    try:
+        col = r.columns[r._col("x")]
+        cells = [(r.float_block(b, ["x"])["x"], r.int_block(b, ["id"])["id"])
+                 for b in range(r.blocks)]
+    finally:
+        r.close()
+    lens = np.array([len(x) for x, _ in cells], np.int64)
+    width = int(lens.max())
+    x = np.zeros((len(cells), width), np.float32)
+    ids = np.zeros((len(cells), width), np.int64)
+    for i, (xs, id_) in enumerate(cells):
+        x[i, :len(xs)], ids[i, :len(xs)] = xs, id_
+    pixels = spec.float_group_pixels(col.low, col.high, col.dx)
+    one, two = BlockEncoder(dev), BlockEncoder([dev, dev])
+    t = {}
+    for name, enc in (("one device", one), ("two shares", two)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = enc.encode_float_blocks(x, col.low, col.high, pixels, lens=lens)
+        i = enc.encode_int_blocks(ids, lens=lens)
+        t[name] = time.perf_counter() - t0
+        if enc is one:
+            f1, i1 = f, i
+    same_blocks(f, f1, "float encode on [card, card]")
+    same_blocks(i, i1, "int encode on [card, card]")
+    # the decode methods take blocks of one length: the most frequent
+    n = int(np.bincount(lens).argmax())
+    ids_n = np.nonzero(lens == n)[0]
+    dec_i = two.decode_int_blocks([i.payloads[k] for k in ids_n],
+                                  i.mins[ids_n], i.bits[ids_n], n)
+    dec_f = two.decode_float_blocks([f.payloads[k] for k in ids_n],
+                                    f.mins[ids_n], f.bits[ids_n], col.low,
+                                    col.high, pixels, n, dither="midpoint")
+    if not np.array_equal(dec_i, ids[ids_n, :n]):
+        raise AssertionError("decode_int_blocks on [card, card] differs")
+    if not np.array_equal(dec_f.view(np.int32), x[ids_n, :n].view(np.int32)):
+        raise AssertionError("decode_float_blocks on [card, card] differs")
+    log("BlockEncoder([card, card]) on the x and id columns of %d ragged "
+        "cells (%d..%d rows): payloads, minimums and widths equal to "
+        "BlockEncoder(card)'s (%d + %d bytes); %d cells of %d rows decoded "
+        "back bitwise; encode of both columns %s"
+        % (len(cells), lens.min(), width, f.total_bytes(), i.total_bytes(),
+           len(ids_n), n, ", ".join("%s %.4f s" % kv for kv in t.items())))
+
+
+def jobs_conversions():
+    """``text_to_minh --device --jobs=2`` on phase 4's and on phase 5's
+    catalog, each under two names so that two jobs run at once on one
+    shared encoder: every file must equal the one its phase wrote."""
+    for label, src in (("phase 4", WORK),
+                       ("phase 5", os.path.join(WORK, "boundary"))):
+        d = os.path.join(WORK, "jobs", label.replace(" ", ""))
+        os.makedirs(d)
+        for name in ("hlist_0.50000.list", "hlist_1.00000.list"):
+            os.symlink(os.path.join(src, "hlist_1.00000.list"),
+                       os.path.join(d, name))
+        t0 = time.perf_counter()
+        out = printed(text_to_minh.main,
+                      [os.path.join(src, "run.config"), "all",
+                       os.path.join(d, "hlist_*.list"), d, "--device",
+                       "--jobs=2"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        want = os.path.join(src, "device", "hlist_1.00000.minh")
+        for name in ("hlist_0.50000.minh", "hlist_1.00000.minh"):
+            size = same_file(os.path.join(d, name), want,
+                             "text_to_minh --device --jobs=2, %s" % label)
+        log("text_to_minh --device --jobs=2 on %s's catalog under two "
+            "names: %.3f s, both files byte-identical to the phase's (%d "
+            "bytes); it printed %d lines"
+            % (label, seconds, size, len(out.splitlines())))
+
+
+def multiprocess_path(dev):
+    """Phase 7.  Returns its launches: the workers' and this process's."""
+    check_multiprocess_shapes(dev)
+    total = multiprocess_runs()
+    reset_counts()
+    two_device_encoder(dev)
+    jobs_conversions()
+    here = counts()
+    need(here, KERNELS[:4], "the two-share encoder and --jobs")
+    log("phase 7 launches: workers %s, this process %s" % (total, here))
+    return {k: total[k] + here[k] for k in KERNELS}
+
+
+# -- phase 8: certification ---------------------------------------------------
+
+
+def certify_families(dev):
+    """The one-shot self-check of each kernel family on the card, as the
+    first ``BlockEncoder`` or bulk read of a process runs it."""
+    for family in selfcheck.FAMILIES:
+        t0 = time.perf_counter()
+        selfcheck.kernel_ok(family, dev)
+        torch.cuda.synchronize()
+        log("selfcheck %s: ok in %.3f s" % (family,
+                                            time.perf_counter() - t0))
+
+
+def certification(dev):
+    t0 = time.perf_counter()
+    report = validate.validate_backend(dev)
+    torch.cuda.synchronize()
+    log("validate_backend: %s in %.2f s (quantize and dequantize at "
+        "200,000 values a config, pack at 8 widths, K1, K2 and K5 at "
+        "widths 1..32, K3 and K4 at 0..64, against core.spec, bitwise)"
+        % (json.dumps(report), time.perf_counter() - t0))
+    log("selfcheck verdicts (cached since phase 3): %s" % json.dumps(
+        {f: selfcheck.kernel_ok(f, dev) for f in selfcheck.FAMILIES}))
+    files = [os.path.join(WORK, "device", "hlist_1.00000.minh"),
+             os.path.join(WORK, "boundary", "bnd_device",
+                          "hlist_1.00000.bnd.minh"),
+             os.path.join(WORK, "x_0.minp")]
+    for f in files:
+        t0 = time.perf_counter()
+        problems = verify_minnow.verify(f, deep=True)
+        if problems:
+            raise AssertionError("verify_minnow(%s): %s" % (f, problems))
+        log("verify_minnow --deep %s: ok (%d bytes, %.2f s)"
+            % (os.path.relpath(f, WORK), os.path.getsize(f),
+               time.perf_counter() - t0))
+    cut = os.path.join(WORK, "cut.minh")
+    with open(files[0], "rb") as f:
+        data = f.read()
+    with open(cut, "wb") as f:
+        f.write(data[:len(data) - 10])
+    problems = verify_minnow.verify(cut, deep=True)
+    if not problems:
+        raise AssertionError("verify_minnow found nothing wrong with a file "
+                             "cut short")
+    log("verify_minnow --deep of a copy cut short by 10 bytes: %s"
+        % problems)
 
 
 def main():
@@ -1436,6 +1769,7 @@ def main():
     results["K3"]["max_abs_err"] = check_k3(dev, rng)
     results["K4"]["max_abs_err"] = check_k4(dev, rng)
     check_tile_entries(dev, rng)
+    certify_families(dev)
     reuse_path = flagship(dev, results)
     need(reuse_path, ("K1", "K5"), "the reuse_q path")
 
@@ -1448,7 +1782,13 @@ def main():
     t0 = time.perf_counter()
     third = snapshot_path(dev)
     log("phase 6: %.1f s" % (time.perf_counter() - t0))
-    runs = (reuse_path, first, second, third)
+    t0 = time.perf_counter()
+    fourth = multiprocess_path(dev)
+    log("phase 7: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    certification(dev)
+    log("phase 8: %.1f s" % (time.perf_counter() - t0))
+    runs = (reuse_path, first, second, third, fourth)
     launches = {k: sum(run[k] for run in runs) for k in KERNELS}
 
     banned = [m for m in sys.modules

@@ -18,12 +18,24 @@ Module names mirror ``minnow_tpu`` so each counterpart is easy to find:
   arithmetic (the semantics of ``core/spec.py``);
 * ``ops.encode`` / ``ops.decode`` -- the kernel wrappers, each beside its
   plain PyTorch version;
-* ``parallel.pipeline.BlockEncoder`` -- batched block encode on one device;
+* ``ops.selfcheck`` -- the one-shot certification of a kernel family at
+  its first CUDA use in a process; ``ops.validate`` -- the every-width
+  exactness checks of a device (``validate_backend``);
+* ``parallel.pipeline.BlockEncoder`` -- batched block encode and decode on
+  one device or several (``parallel.mesh``: the devices and the split of
+  the block axis);
+* ``parallel.distributed`` -- the multi-process writer: ``gather_blocks``
+  of every process's encoded blocks to one file, on ``torch.distributed``;
 * ``formats.minh_device`` -- bulk column reads of minh files;
 * ``formats.minp_device.read_vectors`` -- bulk reads of minp files;
 * ``formats.boundary_device`` -- batched boundary-file writes;
 * ``cli.text_to_minh``, ``cli.minh_to_bnd``, ``cli.inspect_minh``,
-  ``cli.convert_snapshot`` -- the converters, host mode and ``--device``.
+  ``cli.convert_snapshot`` -- the converters, host mode and ``--device``;
+  ``cli.print_all_names``, ``cli.verify_minnow`` -- host-only audits;
+* ``utils.sched`` -- host task pools (``text_to_minh --jobs``);
+* ``tools`` -- scripts for the card: ``multiprocess_gather_check`` (N
+  processes, one file, sharded read-back), ``kernel_fuzz_soak``,
+  ``time_encode``, ``ab_launch``.
 
 The package stands alone: it imports nothing of ``minnow_tpu`` and no
 jax.  Its host layers are its own copies of the reference's, the same

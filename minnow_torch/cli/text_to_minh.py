@@ -4,7 +4,7 @@ scripts/text_to_minh.go -- the flagship encode pipeline).
 
 Usage:
   python -m minnow_torch.cli.text_to_minh <config> <vars|all> <glob> <outdir>
-        [--device] [--block-size=BYTES]
+        [--device] [--block-size=BYTES] [--jobs=N]
 
 Config file (ref text_to_minh.go:80-109):
 
@@ -28,8 +28,9 @@ Without ``--device`` the host codec (``core.spec``, numpy and the native
 engine) writes the file.  With ``--device`` every Float and Int column of
 a row-block is encoded on the CUDA device by the port's kernels
 (``parallel.pipeline.BlockEncoder``, K1 and K3), and the output bytes are
-identical; without a CUDA device ``--device`` is an error.  The
-reference's ``--jobs=N`` (several files at once) is not ported yet.
+identical; without a CUDA device ``--device`` is an error.  ``--jobs=N``
+converts N files at once on host threads (:func:`convert_files`); with
+``--device`` the jobs share one ``BlockEncoder``.
 """
 
 from __future__ import annotations
@@ -45,12 +46,14 @@ import numpy as np
 from ..formats import minh
 from ..ingest import rockstar
 from ..utils import config as cfgmod
+from ..utils import sched
 from ..parallel.pipeline import BlockEncoder
 from ..utils.device import cuda_device
 from ..utils.name_index import open_index
 
 __all__ = ["THREADS", "parse_config", "parse_types", "parse_vars",
-           "column_from_type", "out_name", "convert_file", "main"]
+           "column_from_type", "out_name", "convert_file", "convert_files",
+           "main"]
 
 # native-parse worker count.  The reference hard-codes 16 goroutines
 # (ref text_to_minh.go:35), but std::threads oversubscribed past the
@@ -147,10 +150,12 @@ def out_name(out_dir: str, hlist: str) -> str:
 
 
 def convert_file(cfg, idx, types, wanted, hlist, out, device=None,
-                 threads=THREADS, timer=None, block_size=None):
+                 threads=THREADS, timer=None, block_size=None, encoder=None):
     """(ref text_to_minh.go:166-214).  ``device`` is the torch device that
     encodes the Float and Int columns (a CUDA device runs the kernels,
-    ``"cpu"`` their plain versions), or None for the host codec.
+    ``"cpu"`` their plain versions), or None for the host codec;
+    ``encoder`` is a ``BlockEncoder`` to use in place of a new one on
+    ``device`` (concurrent conversions share one).
     ``timer`` (optional
     utils.profiling.StageTimer) collects per-stage seconds/GBps:
     read / scan_lines / parse (inside the text reader, possibly on the
@@ -204,8 +209,10 @@ def convert_file(cfg, idx, types, wanted, hlist, out, device=None,
     # writer encode pool sized to this call's thread share (see
     # minh.Writer)
     fm = minh.create(out, encode_workers=min(4, max(1, threads)))
-    if device is not None:
-        fm = _DeviceMinhWriter(fm, BlockEncoder(device))
+    if encoder is None and device is not None:
+        encoder = BlockEncoder(device)
+    if encoder is not None:
+        fm = _DeviceMinhWriter(fm, encoder)
     fm.header(names, header, cols)
     fm.geometry(np.float32(cfg["L"]), 0, 0)
 
@@ -324,6 +331,48 @@ class _DeviceMinhWriter:
         self.wr.close()
 
 
+def convert_files(cfg, idx, types, wanted, files, out_dir,
+                  device=None, block_size=None, jobs=1,
+                  log=print) -> None:
+    """Convert a list of catalog files, ``jobs`` of them concurrently
+    (the reference's outer loop, ref scripts/text_to_minh.go:54-67,
+    fanned out with utils/sched).  Each output file is independent so
+    results are byte-identical to the sequential loop.  Biggest files
+    start first so the queue tail stays balanced; per-file parse
+    threads shrink so jobs x threads stays near the core count.  With a
+    ``device`` the jobs share one ``BlockEncoder``."""
+    # distinct inputs sharing a basename (a glob spanning directories)
+    # would write the same output path -- concurrently with jobs > 1,
+    # corrupting it silently; refuse up front
+    outs = {}
+    for f in files:
+        o = out_name(out_dir, f)
+        if o in outs:
+            raise SystemExit(
+                "input files %r and %r both map to output %r; "
+                "convert them into separate output directories"
+                % (outs[o], f, o))
+        outs[o] = f
+
+    jobs = max(1, min(jobs, len(files) or 1))
+    per_threads = max(1, THREADS // jobs) if jobs > 1 else THREADS
+    order = sorted(range(len(files)),
+                   key=lambda i: -os.path.getsize(files[i]))
+    encoder = None if device is None else BlockEncoder(device)
+
+    def work(w, j):
+        hlist = files[order[j]]
+        log("Converting %s" % hlist)
+        t0 = time.time()
+        convert_file(cfg, idx, types, wanted, hlist,
+                     out_name(out_dir, hlist), threads=per_threads,
+                     block_size=block_size, encoder=encoder)
+        log("    %s: %.2f minutes" % (os.path.basename(hlist),
+                                      (time.time() - t0) / 60))
+
+    sched.worker_queue(jobs, len(files), work)
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     device = None
@@ -331,9 +380,13 @@ def main(argv=None):
         argv.remove("--device")
         device = cuda_device()
     block_size = None
+    jobs = 1
     for a in list(argv):
         if a.startswith("--block-size="):
             block_size = int(a.split("=", 1)[1])
+            argv.remove(a)
+        elif a.startswith("--jobs="):
+            jobs = int(a.split("=", 1)[1])
             argv.remove(a)
     if len(argv) != 4:
         raise SystemExit(__doc__)
@@ -344,14 +397,9 @@ def main(argv=None):
     types = parse_types(cfg["TypeIndex"], idx)
     wanted = parse_vars(vars_fname, idx)
 
-    for hlist in sorted(globmod.glob(in_pattern)):
-        print("Converting %s" % hlist)
-        t0 = time.time()
-        convert_file(cfg, idx, types, wanted, hlist,
-                     out_name(out_dir, hlist), device,
-                     block_size=block_size)
-        print("    %s: %.2f minutes" % (os.path.basename(hlist),
-                                        (time.time() - t0) / 60))
+    convert_files(cfg, idx, types, wanted,
+                  sorted(globmod.glob(in_pattern)), out_dir,
+                  device=device, block_size=block_size, jobs=jobs)
 
 
 if __name__ == "__main__":

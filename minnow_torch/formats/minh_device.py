@@ -17,6 +17,7 @@ import numpy as np
 
 from ..core import types as ctypes_
 from ..ops import bitpack
+from ..utils.device import cuda_device
 from . import minh
 from .device_common import group_decode, group_decode_ints
 
@@ -58,12 +59,15 @@ def _buckets(reader, c: int):
     return block_ids, raw, out
 
 
-def read_floats(reader, names, device, dither: str = None,
+def read_floats(reader, names, device=None, dither: str = None,
                 seed: int = None):
-    """Read float columns of a ``minh.Reader`` on ``device``; returns
-    ``{name: float32 numpy array}`` over all blocks, as
-    ``reader.floats``.  ``dither``/``seed`` default to the reader's own,
-    so the result equals ``reader.floats(names)`` bitwise."""
+    """Read float columns of a ``minh.Reader`` on ``device`` (default: the
+    CUDA device, an error without one); returns ``{name: float32 numpy
+    array}`` over all blocks, as ``reader.floats``.  ``dither``/``seed``
+    default to the reader's own, so the result equals
+    ``reader.floats(names)`` bitwise."""
+    if device is None:
+        device = cuda_device()
     if dither is None:
         dither = reader.f.dither
     if seed is None:
@@ -93,11 +97,14 @@ def read_floats(reader, names, device, dither: str = None,
     return out
 
 
-def read_ints(reader, names, device):
+def read_ints(reader, names, device=None):
     """Read ``Int`` (delta-coded) columns of a ``minh.Reader`` on
-    ``device``; returns ``{name: int64 numpy array}`` over all blocks,
-    bitwise equal to ``reader.ints(names)``.  Raw ``Int64`` columns have
-    nothing to decode and are refused: read them with ``reader.ints``."""
+    ``device`` (default: the CUDA device, an error without one); returns
+    ``{name: int64 numpy array}`` over all blocks, bitwise equal to
+    ``reader.ints(names)``.  Raw ``Int64`` columns have nothing to decode
+    and are refused: read them with ``reader.ints``."""
+    if device is None:
+        device = cuda_device()
     out = {}
     for name in names:
         c = reader._col(name)

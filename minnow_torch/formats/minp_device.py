@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops import bitpack
+from ..utils.device import cuda_device
 from .device_common import group_decode
 
 __all__ = ["read_vectors"]
@@ -34,11 +35,15 @@ def _join_sub_cells(blocks, s: int):
     return g.permute(0, 3, 1, 4, 2, 5, 6).reshape(s * s * s * n3, 3)
 
 
-def read_vectors(reader, device, dither: str = None, seed: int = None):
-    """The vectors of a ``minp.Reader``, decoded on ``device``: an (N, 3)
-    float32 tensor there, in the order ``reader.vectors()`` gives.
-    ``dither``/``seed`` default to the reader's own, so the result
-    equals ``reader.vectors()`` bitwise."""
+def read_vectors(reader, device=None, dither: str = None,
+                 seed: int = None):
+    """The vectors of a ``minp.Reader``, decoded on ``device`` (default:
+    the CUDA device, an error without one): an (N, 3) float32 tensor
+    there, in the order ``reader.vectors()`` gives.  ``dither``/``seed``
+    default to the reader's own, so the result equals
+    ``reader.vectors()`` bitwise."""
+    if device is None:
+        device = cuda_device()
     if dither is None:
         dither = reader.f.dither
     if seed is None:

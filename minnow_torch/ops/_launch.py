@@ -2,9 +2,15 @@
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 THREADS = 256  # threads per CTA (csrc/bitstream.cuh kThreads)
+
+# held around each ``K*_LAUNCHES += 1``: host threads that share an encoder
+# (``text_to_minh --device --jobs=N``) must not lose a count
+COUNT_LOCK = threading.Lock()
 
 
 def grid_y(work: int, per_thread: int) -> int:

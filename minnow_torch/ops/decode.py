@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, bitpack, codec
-from ._launch import expect, grid_y, on_card, stream_of
+from ._launch import COUNT_LOCK, expect, grid_y, on_card, stream_of
 
 __all__ = ["K2_LAUNCHES", "K4_LAUNCHES", "decode_float_group",
            "decode_float_plain", "decode_int_group", "decode_int_plain"]
@@ -68,7 +68,8 @@ def decode_int_group(words, mins, bits: int, n: int):
         err = _build.load().minnow_unpack_int(
             words.data_ptr(), b, w, n, bits, mins.data_ptr(), out.data_ptr(),
             grid_y(n, UNPACK_PER_THREAD), stream_of(words))
-    K4_LAUNCHES += 1
+    with COUNT_LOCK:
+        K4_LAUNCHES += 1
     _build.check(err, "unpack_int")
     return out
 
@@ -131,6 +132,7 @@ def decode_float_group(words, mins, params: codec.BlockParams, bits: int,
             k1.data_ptr() if uniform else None,
             k2.data_ptr() if uniform else None, out.data_ptr(),
             grid_y(n, DECODE_PER_THREAD), stream_of(words))
-    K2_LAUNCHES += 1
+    with COUNT_LOCK:
+        K2_LAUNCHES += 1
     _build.check(err, "decode_float")
     return out

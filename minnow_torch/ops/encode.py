@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from . import _build, bitpack, codec
-from ._launch import THREADS, expect, grid_y, on_card, stream_of
+from ._launch import (COUNT_LOCK, THREADS, expect, grid_y, on_card,
+                      stream_of)
 
 __all__ = [
     "K1_LAUNCHES",
@@ -42,6 +43,8 @@ __all__ = [
     "pack_float_plain",
     "pack_float_q",
     "pack_float_q_plain",
+    "start_float_group",
+    "finish_float_group",
     "encode_float_group",
     "plan_int",
     "delta_pack_int",
@@ -144,7 +147,8 @@ def _launch_stats(x, params, lens, q_out):
             params.pixels.data_ptr(), params.periodic.data_ptr(),
             lens.data_ptr(), stats.data_ptr(),
             None if q_out is None else q_out.data_ptr(), stream_of(x))
-    K1_LAUNCHES += 1
+    with COUNT_LOCK:
+        K1_LAUNCHES += 1
     _build.check(err, "encode_float_stats")
     return stats
 
@@ -203,7 +207,8 @@ def _launch_plan(stats, params, lens):
             stats.data_ptr(), params.pixels.data_ptr(),
             params.periodic.data_ptr(), lens.data_ptr(), b, plan.data_ptr(),
             stream_of(stats))
-    K1_LAUNCHES += 1
+    with COUNT_LOCK:
+        K1_LAUNCHES += 1
     _build.check(err, "encode_float_plan")
     return plan
 
@@ -277,10 +282,11 @@ def _launch_pack(src, params, lens, plan, capacity: int):
             params.dx.data_ptr(), params.pixels.data_ptr(),
             params.periodic.data_ptr(), plan.data_ptr(), lens.data_ptr(),
             words.data_ptr(), capacity, stream_of(src))
-    if from_x:
-        K1_LAUNCHES += 1
-    else:
-        K5_LAUNCHES += 1
+    with COUNT_LOCK:
+        if from_x:
+            K1_LAUNCHES += 1
+        else:
+            K5_LAUNCHES += 1
     _build.check(err, "encode_float_pack" if from_x
                  else "encode_float_pack_q")
     return words
@@ -314,6 +320,46 @@ def pack_float_q(q, params: codec.BlockParams, lens, plan: Plan):
     return _pack_by_host_plan(q, params, lens, plan)
 
 
+def start_float_group(x, params: codec.BlockParams, lens,
+                      reuse_q: bool = False, capacity: int = None):
+    """Queue the float encode of :func:`encode_float_group` on ``x``'s
+    device and return at once, with what :func:`finish_float_group` needs
+    to bring the result to the host.  On the card nothing here waits for
+    the device, so a caller with several devices or streams can start
+    every share before it reads the first one back."""
+    if not _check_float_args(x, params, lens):
+        q = torch.empty(x.shape, dtype=torch.int32) if reuse_q else None
+        stats = float_stats_plain(x, params, lens, q)
+        plan = read_plan(float_plan_plain(stats, params, lens))
+        if reuse_q:
+            return pack_float_q_plain(q, params, lens, plan), plan, None
+        return pack_float_plain(x, params, lens, plan), plan, None
+    b, n = x.shape
+    _check_lens(lens, n)
+    if capacity is None:
+        capacity = b * n
+    q = None
+    if reuse_q:
+        q = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    stats = _launch_stats(x, params, lens, q)
+    dplan = _launch_plan(stats, params, lens)
+    words = _launch_pack(q if reuse_q else x, params, lens, dplan, capacity)
+    return words, dplan, capacity
+
+
+def finish_float_group(pending):
+    """``(words, plan)`` of a float encode that :func:`start_float_group`
+    queued: one read of the device plan."""
+    words, plan, capacity = pending
+    if capacity is None:  # the plain versions have finished already
+        return words, plan
+    plan = read_plan(plan)
+    if plan.total > capacity:
+        raise ValueError("the batch packs to %d words, above the capacity "
+                         "of %d" % (plan.total, capacity))
+    return words[:plan.total], plan
+
+
 def encode_float_group(x, params: codec.BlockParams, lens,
                        reuse_q: bool = False, capacity: int = None):
     """Encode float blocks ``x`` (B, n) float32 over their first ``lens``
@@ -329,38 +375,21 @@ def encode_float_group(x, params: codec.BlockParams, lens,
     in an int32 (B, n) buffer and K5 packs from it, where K1's pack
     quantizes x again (``encode_float_pallas_bigblock(reuse_q=True)``,
     ``pallas_encode.py:855``); the words are the same."""
-    if not _check_float_args(x, params, lens):
-        q = torch.empty(x.shape, dtype=torch.int32) if reuse_q else None
-        stats = float_stats_plain(x, params, lens, q)
-        plan = read_plan(float_plan_plain(stats, params, lens))
-        if reuse_q:
-            return pack_float_q_plain(q, params, lens, plan), plan
-        return pack_float_plain(x, params, lens, plan), plan
-    b, n = x.shape
-    _check_lens(lens, n)
-    if capacity is None:
-        capacity = b * n
-    q = None
-    if reuse_q:
-        q = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    stats = _launch_stats(x, params, lens, q)
-    dplan = _launch_plan(stats, params, lens)
-    words = _launch_pack(q if reuse_q else x, params, lens, dplan, capacity)
-    plan = read_plan(dplan)
-    if plan.total > capacity:
-        raise ValueError("the batch packs to %d words, above the capacity "
-                         "of %d" % (plan.total, capacity))
-    return words[:plan.total], plan
+    return finish_float_group(start_float_group(x, params, lens, reuse_q,
+                                                capacity))
 
 
 # -- K3: int delta pack ---------------------------------------------------------
 
 
-def plan_int(x, lens) -> Plan:
+def plan_int(x, lens, stats=None) -> Plan:
     """Host plan of an int batch: minimum and wrapped max delta of each
     block by plain PyTorch reductions on ``x``'s device, as the JAX
-    package takes them in XLA (``codec.int_block_stats``)."""
-    mins, maxd = (t.cpu().numpy() for t in codec.int_block_stats(x, lens))
+    package takes them in XLA (``codec.int_block_stats``).  ``stats`` is
+    that function's result where the caller has queued it already."""
+    if stats is None:
+        stats = codec.int_block_stats(x, lens)
+    mins, maxd = (t.cpu().numpy() for t in stats)
     b = len(mins)
     return _plan(mins, maxd, np.ones(b, bool), np.zeros(b, np.int64),
                  lens.cpu().numpy())
@@ -403,17 +432,18 @@ def delta_pack_int(x, lens, plan: Plan):
             x.data_ptr(), b, n, mins.data_ptr(), bits.data_ptr(),
             lens.data_ptr(), offsets.data_ptr(), words.data_ptr(),
             grid_y(plan.max_words, PACK_PER_THREAD), stream_of(x))
-    K3_LAUNCHES += 1
+    with COUNT_LOCK:
+        K3_LAUNCHES += 1
     _build.check(err, "pack_int")
     return words
 
 
-def encode_int_group(x, lens):
+def encode_int_group(x, lens, stats=None):
     """Encode int blocks ``x`` (B, n) int64 over their first ``lens``
-    elements: host plan from device reductions, then K3.  Returns
-    ``(words, plan)``."""
+    elements: host plan from device reductions (``stats``, see
+    :func:`plan_int`), then K3.  Returns ``(words, plan)``."""
     _check_int_args(x, lens)
-    plan = plan_int(x, lens)
+    plan = plan_int(x, lens, stats)
     return delta_pack_int(x, lens, plan), plan
 
 

@@ -1,0 +1,262 @@
+"""One-shot per-process certification of the kernel families (counterpart
+of ``minnow_tpu/ops/selfcheck.py``).
+
+The encoders and bulk readers launch the CUDA kernels without the full
+``ops.validate.validate_backend`` run having happened in the process.  A
+miscompiling toolchain or a broken card would then corrupt written files
+and bulk reads silently.  So the first CUDA use of a kernel family in a
+process (``parallel.pipeline.BlockEncoder``, ``formats.device_common``)
+runs a small comparison of the kernels with the normative host codec
+(``core.spec``) on that device, bitwise, and the verdict is cached.
+
+Unlike the reference, a divergence is never answered by another route:
+where the TPU package warns and falls back to XLA, :func:`kernel_ok`
+raises :class:`SelfCheckError`, naming the family and the first
+divergence, on this call and on every later one.  There is no switch
+that skips the check.  On the CPU the wrappers run their plain versions,
+which need no certificate, and the callers do not ask for one
+(:func:`certify`); :func:`kernel_ok` itself runs on any device.
+
+Families, as in the reference: ``encode`` (K1 at the flagship width, K3
+at 41 and 18 bits), ``decode`` (K2 in ``none`` and ``midpoint``, K4 at 18
+and 41 bits) and ``decode_uniform`` (K2's counter-hash dither).
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from ..core import dither as dither_mod
+from ..core import spec
+from ..utils.device import cuda_device
+from . import bitpack, codec, decode, encode
+
+__all__ = ["SelfCheckError", "kernel_ok", "certify", "reset",
+           "spec_decode_float", "words_of", "payload_of", "FAMILIES"]
+
+# (family, device) -> None when it passed, the divergence when not
+_VERDICTS: dict = {}
+# serializes first-use checks: concurrent encoders (text_to_minh --device
+# --jobs=N worker threads) must not each run the check on a shared miss
+_LOCK = threading.Lock()
+
+# device types whose kernels production paths certify before first use
+_CERTIFIED_TYPES = ("cuda",)
+
+# the flagship float config: L 250 at 0.001, 250,000 pixels, 18 bits
+_LOW, _HIGH, _DX, _BITS = 0.0, 250.0, 0.001, 18
+_N, _BLOCKS = 8192, 2
+
+
+class SelfCheckError(RuntimeError):
+    """A kernel family diverged from the normative codec on its device."""
+
+
+def reset() -> None:
+    """Clear cached verdicts (tests only)."""
+    with _LOCK:
+        _VERDICTS.clear()
+
+
+def _put(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def words_of(values, bits: int) -> np.ndarray:
+    """(B, n) uint64 values -> the (B, W) uint32 words of their streams at
+    ``bits``, packed by ``spec.pack_bits``."""
+    n = values.shape[1]
+    return np.stack([bitpack.bytes_to_words(spec.pack_bits(v, bits), bits, n)
+                     for v in values])
+
+
+def spec_decode_float(words, mn: int, bits: int, n: int, low, high,
+                      pixels: int, periodic: bool, mode: str = "none",
+                      seed: int = 0, block: int = 0) -> np.ndarray:
+    """The host reader's decode of one float block from its uint32 words
+    (``core.groups.FloatGroup.read_data`` with ``core.dither``)."""
+    q = spec.decode_int_block(bitpack.words_to_bytes(words, bits, n), mn,
+                              bits, n)
+    if periodic:
+        q = spec.bound(q, 0, pixels)
+    return spec.dequantize(q, low, high, pixels,
+                           u=dither_mod.dither_u(mode, seed, block, n))
+
+
+def _same(got, want, what: str) -> None:
+    """Raise unless the arrays hold the same bits."""
+    got, want = np.ascontiguousarray(got), np.ascontiguousarray(want)
+    if got.shape != want.shape:
+        raise AssertionError("%s: shape %s, want %s"
+                             % (what, got.shape, want.shape))
+    bad = np.nonzero(got.view(np.uint8).reshape(-1)
+                     != want.view(np.uint8).reshape(-1))[0]
+    if bad.size:
+        i = int(bad[0]) // got.itemsize
+        raise AssertionError(
+            "%s: %d of %d elements differ, first at %d (got %r, want %r)"
+            % (what, len(np.unique(bad // got.itemsize)), got.size, i,
+               got.reshape(-1)[i], want.reshape(-1)[i]))
+
+
+def payload_of(words, plan, i: int, n: int) -> bytes:
+    """The payload bytes of block ``i`` (``n`` elements) in the flat numpy
+    word buffer of an encode, by its plan."""
+    off, width = int(plan.offsets[i]), int(plan.bits[i])
+    nw = bitpack.words_per_block(width, n)
+    return bitpack.words_to_bytes(words[off:off + nw], width, n)
+
+
+def _check_encode(device) -> None:
+    """K1 at the flagship width and K3 at 41 bits (above 32) and 18 ==
+    host spec bytes, minimums and widths."""
+    rng = np.random.default_rng(11)
+    pixels = spec.float_group_pixels(_LOW, _HIGH, _DX)
+    x = rng.uniform(0.0, 249.9, (_BLOCKS, _N)).astype(np.float32)
+    params = codec.block_params(np.full(_BLOCKS, _LOW),
+                                np.full(_BLOCKS, _HIGH),
+                                np.full(_BLOCKS, pixels),
+                                np.ones(_BLOCKS, bool), device)
+    lens = torch.full((_BLOCKS,), _N, dtype=torch.int64, device=device)
+    words, plan = encode.encode_float_group(_put(x, device), params, lens)
+    words = words.cpu().numpy()
+    if not plan.valid.all():
+        raise AssertionError("K1 failed to certify in-range blocks")
+    for i in range(_BLOCKS):
+        payload, mn, bits, _ = spec.encode_float_block(x[i], _LOW, _HIGH,
+                                                       pixels)
+        if (int(plan.mins[i]), int(plan.bits[i])) != (mn, bits):
+            raise AssertionError(
+                "K1 stats diverge from spec at block %d: min %d bits %d, "
+                "want %d, %d" % (i, plan.mins[i], plan.bits[i], mn, bits))
+        if payload_of(words, plan, i, _N) != payload:
+            raise AssertionError("K1 payload bytes diverge from spec at "
+                                 "block %d" % i)
+
+    for ibits in (41, 18):
+        xi = rng.integers(0, 1 << (ibits - 1), (_BLOCKS, _N),
+                          dtype=np.int64)
+        xi[:, 0] = 0
+        xi[:, 1] = (1 << ibits) - 1  # pin the true width
+        words, plan = encode.encode_int_group(_put(xi, device), lens)
+        words = words.cpu().numpy()
+        for i in range(_BLOCKS):
+            payload, mn, bits = spec.encode_int_block(xi[i])
+            if (int(plan.mins[i]), int(plan.bits[i])) != (mn, bits) \
+                    or bits != ibits:
+                raise AssertionError("K3 plan diverges from spec at %d bits"
+                                     % ibits)
+            if payload_of(words, plan, i, _N) != payload:
+                raise AssertionError("K3 payload bytes diverge from spec "
+                                     "(bits=%d, block %d)" % (ibits, i))
+
+
+def _float_case(rng, device):
+    """Two flagship blocks as packed words with their decode arguments."""
+    pixels = spec.float_group_pixels(_LOW, _HIGH, _DX)
+    vals = rng.integers(0, pixels, (_BLOCKS, _N), dtype=np.uint64)
+    words = words_of(vals, _BITS)
+    mins = np.zeros(_BLOCKS, np.int64)
+    params = codec.block_params(np.full(_BLOCKS, _LOW),
+                                np.full(_BLOCKS, _HIGH),
+                                np.full(_BLOCKS, pixels),
+                                np.ones(_BLOCKS, bool), device)
+    return words, mins, pixels, (_put(words.view(np.int32), device),
+                                 _put(mins, device), params, _BITS, _N)
+
+
+def _check_decode(device) -> None:
+    """K2 in ``none`` and ``midpoint`` == the host reader's decode, and K4
+    at 18 and at 41 bits (the wide unpack) == ``spec.decode_int_block``,
+    bitwise."""
+    rng = np.random.default_rng(12)
+    words, mins, pixels, args = _float_case(rng, device)
+    for mode in ("none", "midpoint"):
+        got = decode.decode_float_group(*args, mode).cpu().numpy()
+        for i in range(_BLOCKS):
+            _same(got[i], spec_decode_float(words[i], 0, _BITS, _N, _LOW,
+                                            _HIGH, pixels, True, mode),
+                  "K2 %s decode, block %d" % (mode, i))
+    got = decode.decode_int_group(args[0], args[1], _BITS, _N).cpu().numpy()
+    for i in range(_BLOCKS):
+        _same(got[i], spec.decode_int_block(
+            bitpack.words_to_bytes(words[i], _BITS, _N), 0, _BITS, _N),
+            "K4 at %d bits, block %d" % (_BITS, i))
+    wbits = 41
+    vals = rng.integers(0, 1 << wbits, (_BLOCKS, _N), dtype=np.uint64)
+    wwords = words_of(vals, wbits)
+    wmins = rng.integers(-100, 100, _BLOCKS).astype(np.int64)
+    got = decode.decode_int_group(_put(wwords.view(np.int32), device),
+                                  _put(wmins, device), wbits, _N)
+    got = got.cpu().numpy()
+    for i in range(_BLOCKS):
+        _same(got[i], spec.decode_int_block(
+            bitpack.words_to_bytes(wwords[i], wbits, _N), int(wmins[i]),
+            wbits, _N), "K4 wide unpack at %d bits, block %d" % (wbits, i))
+
+
+def _check_decode_uniform(device) -> None:
+    """K2's in-kernel counter-hash dither (the default read mode) == the
+    host reader's ``uniform`` decode, bitwise.  Its own family, as in the
+    reference: its 32-bit multiplies are another surface than the
+    unpack."""
+    rng = np.random.default_rng(13)
+    words, mins, pixels, args = _float_case(rng, device)
+    ids = np.array([0, (1 << 33) + 5])[:_BLOCKS]
+    k1, k2 = codec.dither_keys(ids, 1, device)
+    got = decode.decode_float_group(*args, "uniform", k1, k2).cpu().numpy()
+    for i in range(_BLOCKS):
+        _same(got[i], spec_decode_float(words[i], 0, _BITS, _N, _LOW, _HIGH,
+                                        pixels, True, "uniform", 1,
+                                        int(ids[i])),
+              "K2 uniform decode, block %d" % i)
+
+
+_CHECKS = {"encode": _check_encode, "decode": _check_decode,
+           "decode_uniform": _check_decode_uniform}
+FAMILIES = tuple(_CHECKS)
+
+
+def _device_key(device) -> str:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def kernel_ok(family: str, device=None) -> bool:
+    """True when the kernel ``family`` (``encode``, ``decode`` or
+    ``decode_uniform``) passed its one-shot check on ``device`` (default:
+    the CUDA device) in this process; :class:`SelfCheckError` when it did
+    not, now and on every later call.  It never returns False: there is
+    no other route to take."""
+    if family not in _CHECKS:
+        raise ValueError("unknown kernel family %r" % (family,))
+    if device is None:
+        device = cuda_device()
+    key = (family, _device_key(device))
+    if _VERDICTS.get(key, key) is None:  # passed before: no lock to take
+        return True
+    with _LOCK:
+        if key not in _VERDICTS:
+            try:
+                _CHECKS[family](torch.device(device))
+                _VERDICTS[key] = None
+            except AssertionError as e:
+                _VERDICTS[key] = (
+                    "minnow_torch: kernel family %r failed its self-check "
+                    "on %s: %s" % (family, key[1], e))
+        verdict = _VERDICTS[key]
+    if verdict is not None:
+        raise SelfCheckError(verdict)
+    return True
+
+
+def certify(family: str, device) -> None:
+    """What the encoders and readers call before a family's first use on
+    ``device``: :func:`kernel_ok` on a CUDA device, nothing on the CPU."""
+    if torch.device(device).type in _CERTIFIED_TYPES:
+        kernel_ok(family, device)

@@ -1,1 +1,2 @@
-"""Batched block encode on one device."""
+"""Batched block encode and decode on one device or several, and the
+multi-process gather to one file."""

@@ -1,5 +1,5 @@
-"""Batched block encode on one device (counterpart of
-``minnow_tpu/parallel/pipeline.py``).
+"""Batched block encode and decode on one device or several (counterpart
+of ``minnow_tpu/parallel/pipeline.py``).
 
 A batch of minnow blocks, one per row, goes to the device, is encoded
 there by kernel K1 (float) or K3 (int) at each block's true width, and
@@ -13,17 +13,32 @@ normative host encoder ``spec.encode_float_block``, as the reference's
 pipeline does (``pipeline.py:474-487``); with ``clamp_q`` so are the
 valid blocks whose largest pixel reaches ``pixels``, the only pixels
 ``clamp_q`` changes.
+
+Minnow blocks are data-parallel (each carries its own min and width), so
+with several devices the block axis of a batch is split into contiguous
+shares (``mesh.block_shards``), every share is queued on its device in a
+stream of its own before the first is read back, and the shares' results
+are joined in block order: byte for byte the one-device result.  The
+decode methods mirror it: payloads are bucketed by width and each bucket's
+rows are decoded by K4 (int) or K2 (float), shared out the same way.
+
+The first CUDA use of a kernel family in a process certifies it
+(``ops.selfcheck``); a divergence raises and nothing is encoded.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..core import spec
-from ..ops import bitpack, codec, encode
+from ..formats.device_common import group_decode, group_decode_ints
+from ..ops import bitpack, codec, encode, selfcheck
+from ..utils.device import cuda_device
+from . import mesh
 
 __all__ = ["EncodedBlocks", "BlockEncoder"]
 
@@ -81,12 +96,50 @@ def _float_capacity(pixels, periodic, lens) -> int:
     return int(bitpack.words_per_block(np.minimum(widest, 32), lens).sum())
 
 
+def _bucket_words(payloads, idx, width: int, n: int) -> np.ndarray:
+    """The (len(idx), W) uint32 word matrix of the blocks ``idx``, all of
+    ``n`` elements at ``width`` bits (one row of zeros each at width 0)."""
+    words = np.zeros((len(idx), max(bitpack.words_per_block(width, n), 1)),
+                     dtype=np.uint32)
+    if width:
+        for row, block_id in enumerate(idx):
+            words[row] = bitpack.bytes_to_words(payloads[block_id], width, n)
+    return words
+
+
 class BlockEncoder:
-    """Encodes (B, N) batches of minnow blocks on ``device``: a CUDA
+    """Encodes and decodes (B, N) batches of minnow blocks on ``device``:
+    one device or a list of them (a device may stand in the list twice),
+    by default the CUDA device, which raises without a card.  A CUDA
     device runs the kernels, the CPU their plain versions."""
 
-    def __init__(self, device):
-        self.device = torch.device(device)
+    def __init__(self, device=None):
+        self.devices = mesh.block_mesh(cuda_device() if device is None
+                                       else device)
+        self.device = self.devices[0]
+        several = len(self.devices) > 1
+        self._streams = [torch.cuda.Stream(d) if several and d.type == "cuda"
+                         else None for d in self.devices]
+
+    def _shares(self, b: int) -> list:
+        """``(device, stream, slice)`` of each device's share of ``b``
+        blocks, empty shares left out; no blocks at all are one empty
+        share of the first device."""
+        shares = [t for t in zip(self.devices, self._streams,
+                                 mesh.block_shards(b, len(self.devices)))
+                  if t[2].stop > t[2].start]
+        return shares or [(self.devices[0], self._streams[0], slice(0, 0))]
+
+    @staticmethod
+    def _on(stream):
+        """The context in which a share's work is queued and read."""
+        if stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(stream)
+
+    def _certify(self, family: str) -> None:
+        for dev in self.devices:
+            selfcheck.certify(family, dev)
 
     @staticmethod
     def _as_batch(x, lens, dtype):
@@ -98,16 +151,41 @@ class BlockEncoder:
             lens = np.asarray(lens, dtype=np.int64)
         return x, b, n, lens
 
-    def _put(self, a):
-        return torch.from_numpy(a).to(self.device)
+    @staticmethod
+    def _put(a, device):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def _read_payloads(self, shares, encoded, lens) -> list:
+        """The payload bytes of every share's ``(words, plan)``, in block
+        order."""
+        payloads = []
+        for (_, stream, s), (words, plan) in zip(shares, encoded):
+            with self._on(stream):
+                payloads += _payloads(words.cpu().numpy(), plan.offsets,
+                                      plan.bits, lens[s])
+        return payloads
+
+    # -- encode ------------------------------------------------------------
 
     def encode_int_blocks(self, x, lens=None) -> EncodedBlocks:
         """Encode (B, N) int64 blocks (ref go/group.go:242-255)."""
         x, b, n, lens = self._as_batch(x, lens, np.int64)
-        words, plan = encode.encode_int_group(self._put(x), self._put(lens))
-        payloads = _payloads(words.cpu().numpy(), plan.offsets, plan.bits,
-                             lens)
-        return EncodedBlocks(payloads, plan.mins, plan.bits, lens)
+        self._certify("encode")
+        shares = self._shares(b)
+        queued = []
+        for dev, stream, s in shares:
+            with self._on(stream):
+                xt, lt = self._put(x[s], dev), self._put(lens[s], dev)
+                queued.append((xt, lt, codec.int_block_stats(xt, lt)))
+        encoded = []
+        for (_, stream, _), args in zip(shares, queued):
+            with self._on(stream):
+                encoded.append(encode.encode_int_group(*args))
+        payloads = self._read_payloads(shares, encoded, lens)
+        plans = [plan for _, plan in encoded]
+        return EncodedBlocks(payloads,
+                             np.concatenate([p.mins for p in plans]),
+                             np.concatenate([p.bits for p in plans]), lens)
 
     def encode_float_blocks(self, x, low, high, pixels, lens=None,
                             periodic=True,
@@ -124,21 +202,96 @@ class BlockEncoder:
         high = np.broadcast_to(np.asarray(high, np.float32), (b,)).copy()
         pixels = np.broadcast_to(np.asarray(pixels, np.int64), (b,)).copy()
         periodic = np.broadcast_to(np.asarray(periodic, bool), (b,)).copy()
-        params = codec.block_params(low, high, pixels, periodic,
-                                    self.device)
-        words, plan = encode.encode_float_group(
-            self._put(x), params, self._put(lens),
-            capacity=_float_capacity(pixels, periodic, lens))
-        payloads = _payloads(words.cpu().numpy(), plan.offsets, plan.bits,
-                             lens)
-        mins, bits = plan.mins.copy(), plan.bits.copy()
-        host = ~plan.valid
+        self._certify("encode")
+        shares = self._shares(b)
+        queued = []
+        for dev, stream, s in shares:
+            with self._on(stream):
+                params = codec.block_params(low[s], high[s], pixels[s],
+                                            periodic[s], dev)
+                queued.append(encode.start_float_group(
+                    self._put(x[s], dev), params, self._put(lens[s], dev),
+                    capacity=_float_capacity(pixels[s], periodic[s],
+                                             lens[s])))
+        encoded = []
+        for (_, stream, _), pending in zip(shares, queued):
+            with self._on(stream):
+                encoded.append(encode.finish_float_group(pending))
+        payloads = self._read_payloads(shares, encoded, lens)
+        mins, bits, valid, maxd = (
+            np.concatenate([getattr(plan, name) for _, plan in encoded])
+            for name in ("mins", "bits", "valid", "maxd"))
+        host = ~valid
         if clamp_q:
             # K1 certifies periodic pixels in [0, pixels), which clamp_q
             # leaves alone; a non-periodic block's largest is mins + maxd
-            host |= ~periodic & (plan.mins + plan.maxd >= pixels)
+            host |= ~periodic & (mins + maxd >= pixels)
         for i in np.nonzero(host)[0]:
             payloads[i], mins[i], bits[i], _ = spec.encode_float_block(
                 x[i, :lens[i]], low[i], high[i], int(pixels[i]),
                 periodic=bool(periodic[i]), clamp_q=clamp_q)
         return EncodedBlocks(payloads, mins, bits, lens)
+
+    # -- decode ------------------------------------------------------------
+
+    def _decode_shares(self, b: int, decode_share) -> np.ndarray:
+        """``decode_share(device, rows)`` queued for every device's share
+        of a bucket of ``b`` blocks, then read back and joined in block
+        order."""
+        shares = self._shares(b)
+        queued = []
+        for dev, stream, s in shares:
+            with self._on(stream):
+                queued.append(decode_share(dev, s))
+        parts = []
+        for (_, stream, _), dec in zip(shares, queued):
+            with self._on(stream):
+                parts.append(dec.cpu().numpy())
+        return np.concatenate(parts)
+
+    def decode_int_blocks(self, payloads, mins, bits, n: int) -> np.ndarray:
+        """Decode per-block payloads back to (B, n) int64."""
+        b = len(payloads)
+        mins = np.asarray(mins, np.int64)
+        bits = np.asarray(bits, np.int64)
+        out = np.empty((b, n), dtype=np.int64)
+        for width in np.unique(bits):
+            width = int(width)
+            idx = np.nonzero(bits == width)[0]
+            if width == 0:
+                out[idx] = mins[idx, None]
+                continue
+            words = _bucket_words(payloads, idx, width, n)
+            out[idx] = self._decode_shares(
+                len(idx), lambda dev, s: group_decode_ints(
+                    words[s], mins[idx][s], width, n, dev))
+        return out
+
+    def decode_float_blocks(self, payloads, mins, bits, low, high, pixels,
+                            n: int, periodic=True, dither: str = "none",
+                            seed: int = 0, block_ids=None) -> np.ndarray:
+        """Decode per-block payloads back to (B, n) float32
+        (ref go/group.go:299-310).  ``block_ids`` are the container block
+        indices the ``uniform`` dither is keyed on (default 0..B-1)."""
+        b = len(payloads)
+        mins = np.asarray(mins, np.int64)
+        bits = np.asarray(bits, np.int64)
+        low = np.broadcast_to(np.asarray(low, np.float32), (b,))
+        high = np.broadcast_to(np.asarray(high, np.float32), (b,))
+        pixels = np.broadcast_to(np.asarray(pixels, np.int64), (b,))
+        periodic = np.broadcast_to(np.asarray(periodic, bool), (b,))
+        if block_ids is None:
+            block_ids = np.arange(b, dtype=np.int64)
+        block_ids = np.asarray(block_ids, np.int64)
+
+        out = np.empty((b, n), dtype=np.float32)
+        for width in np.unique(bits):
+            width = int(width)
+            idx = np.nonzero(bits == width)[0]
+            words = _bucket_words(payloads, idx, width, n)
+            out[idx] = self._decode_shares(
+                len(idx), lambda dev, s: group_decode(
+                    words[s], mins[idx][s], low[idx][s], high[idx][s],
+                    pixels[idx][s], periodic[idx][s], width, n, dither,
+                    block_ids[idx][s], seed, dev))
+        return out

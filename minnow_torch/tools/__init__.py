@@ -1,1 +1,1 @@
-"""Measurement scripts for the port's kernels on a CUDA card."""
+"""Measurement and check scripts for the port's kernels on a CUDA card."""

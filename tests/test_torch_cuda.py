@@ -6,6 +6,9 @@ the card has no jax, and tests/conftest.py imports it, so run them there
 from the repository root without the conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+The last tests start two worker processes on the one card (gloo between
+them), each with a time limit.
 """
 
 import numpy as np
@@ -16,8 +19,10 @@ import chip_smoke
 from minnow_torch.cli import minh_to_bnd, text_to_minh
 from minnow_torch.core import spec
 from minnow_torch.formats import minh, minh_device
-from minnow_torch.ops import bitpack, codec, decode, encode
+from minnow_torch.ops import bitpack, codec, decode, encode, selfcheck
+from minnow_torch.ops import validate
 from minnow_torch.parallel.pipeline import BlockEncoder
+from minnow_torch.tools import kernel_fuzz_soak, multiprocess_gather_check
 from test_torch_minh_to_bnd import BND, CELLS, write_catalog
 
 pytestmark = pytest.mark.cuda
@@ -335,3 +340,151 @@ def test_read_ints_on_card(dev, tmp_path):
             r.close()
         for name in names:
             np.testing.assert_array_equal(got[name], want[name], name)
+
+
+def _same_blocks(a, b):
+    assert a.payloads == b.payloads
+    for name in ("mins", "bits", "lens"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+
+@pytest.mark.parametrize("copies", [2, 3])
+def test_block_encoder_on_one_card_twice(dev, copies):
+    """The card standing in the device list several times (a stream per
+    share): byte for byte the one-device result, floats (a NaN block and
+    ragged lengths among them) and ints, and the decode methods give the
+    host decode back."""
+    rng = np.random.default_rng(copies)
+    n = 5003
+    x, low, high, pixels, periodic, lens = _float_batch(rng, n)
+    one, many = BlockEncoder(dev), BlockEncoder([dev] * copies)
+    before = encode.K1_LAUNCHES
+    f = many.encode_float_blocks(x, low, high, pixels, lens=lens,
+                                 periodic=periodic)
+    assert encode.K1_LAUNCHES == before + 3 * copies
+    _same_blocks(f, one.encode_float_blocks(x, low, high, pixels, lens=lens,
+                                            periodic=periodic))
+    ids = (1 << 53) + 1 + rng.integers(0, 1 << 40, (7, n))
+    ids[3] = 5
+    i = many.encode_int_blocks(ids, lens=lens)
+    _same_blocks(i, one.encode_int_blocks(ids, lens=lens))
+    for r in range(7):
+        assert (i.payloads[r], i.mins[r], i.bits[r]) == \
+            spec.encode_int_block(ids[r, :lens[r]])
+
+    full = BlockEncoder("cpu").encode_int_blocks(ids)
+    np.testing.assert_array_equal(
+        many.decode_int_blocks(full.payloads, full.mins, full.bits, n), ids)
+    keep = np.array([0, 1, 2, 6])  # the blocks K1 certifies at full length
+    ff = one.encode_float_blocks(x[keep], low[keep], high[keep],
+                                 pixels[keep], periodic=periodic[keep])
+    args = (ff.payloads, ff.mins, ff.bits, low[keep], high[keep],
+            pixels[keep], n)
+    for mode in codec.DITHER_MODES:
+        kw = dict(periodic=periodic[keep], dither=mode, seed=4,
+                  block_ids=[9, 1 << 35, 2, 3])
+        np.testing.assert_array_equal(
+            many.decode_float_blocks(*args, **kw).view(np.uint32),
+            BlockEncoder("cpu").decode_float_blocks(*args, **kw).view(
+                np.uint32))
+
+
+def test_entry_points_default_to_the_card(dev, tmp_path):
+    src = write_catalog(tmp_path, n=500)
+    x = np.arange(64, dtype=np.int64).reshape(2, 32)
+    before = encode.K3_LAUNCHES, decode.K2_LAUNCHES, decode.K4_LAUNCHES
+    enc = BlockEncoder()
+    assert enc.device.type == "cuda"
+    enc.encode_int_blocks(x)
+    r = minh.open(str(src))
+    try:
+        floats = [n for n, c in zip(r.names, r.columns)
+                  if c.type == minh.Float][:1]
+        ints = [n for n, c in zip(r.names, r.columns) if c.type == minh.Int]
+        got = minh_device.read_floats(r, floats)
+        np.testing.assert_array_equal(
+            got[floats[0]].view(np.int32),
+            r.floats(floats)[floats[0]].view(np.int32))
+        np.testing.assert_array_equal(
+            minh_device.read_ints(r, ints[:1])[ints[0]],
+            r.ints(ints[:1])[ints[0]])
+    finally:
+        r.close()
+    after = encode.K3_LAUNCHES, decode.K2_LAUNCHES, decode.K4_LAUNCHES
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("family", selfcheck.FAMILIES)
+def test_selfcheck_passes_on_the_card(dev, family):
+    selfcheck.reset()
+    before = (encode.K1_LAUNCHES + encode.K3_LAUNCHES + decode.K2_LAUNCHES
+              + decode.K4_LAUNCHES)
+    assert selfcheck.kernel_ok(family, dev) is True
+    after = (encode.K1_LAUNCHES + encode.K3_LAUNCHES + decode.K2_LAUNCHES
+             + decode.K4_LAUNCHES)
+    assert after > before  # the kernels ran, not their plain versions
+    assert selfcheck.kernel_ok(family) is True
+    assert (encode.K1_LAUNCHES + encode.K3_LAUNCHES + decode.K2_LAUNCHES
+            + decode.K4_LAUNCHES) == after  # cached
+
+
+def test_selfcheck_divergence_on_the_card_stops_the_encoder(dev,
+                                                            monkeypatch):
+    """A card whose kernel disagrees with spec (here: spec made to
+    disagree) raises out of ``BlockEncoder`` before anything is queued."""
+    selfcheck.reset()
+    real = spec.encode_int_block
+
+    def other(x, pack=None):
+        # spec.encode_float_block packs through this function too: leave
+        # the float check's 18 bits alone, so that K1 passes and K3 at 41
+        # bits is the first to differ
+        payload, mn, bits = real(x, pack)
+        if bits > 32:
+            payload = payload[:-1] + bytes([payload[-1] ^ 1])
+        return payload, mn, bits
+
+    monkeypatch.setattr(selfcheck.spec, "encode_int_block", other)
+    x = np.arange(64, dtype=np.int64).reshape(2, 32)
+    be = BlockEncoder(dev)
+    with pytest.raises(selfcheck.SelfCheckError, match="'encode'.*K3"):
+        be.encode_int_blocks(x)
+    monkeypatch.undo()
+    before = encode.K3_LAUNCHES
+    with pytest.raises(selfcheck.SelfCheckError, match="'encode'.*K3"):
+        be.encode_int_blocks(x)
+    assert encode.K3_LAUNCHES == before
+    selfcheck.reset()
+    assert be.encode_int_blocks(x).payloads
+
+
+def test_validate_backend_on_the_card(dev):
+    report = validate.validate_backend()
+    assert report["backend"] == "cuda" and report["exact"] is True
+    assert all(report[k] is True for k in ("K1", "K2", "K3", "K4", "K5"))
+    assert report["device"] == torch.cuda.get_device_name(0)
+
+
+def test_soak_on_the_card(dev, capsys):
+    before = (encode.K1_LAUNCHES, encode.K3_LAUNCHES, encode.K5_LAUNCHES,
+              decode.K2_LAUNCHES, decode.K4_LAUNCHES)
+    assert kernel_fuzz_soak.main(["20", "--reps=1"]) == 0  # no flag: the card
+    out = capsys.readouterr().out
+    assert "on the card, the CUDA kernels" in out
+    assert "SOAK OK: 20 seeds" in out
+    assert "SWEEP OK: 64 widths int, 23 widths float" in out
+    after = (encode.K1_LAUNCHES, encode.K3_LAUNCHES, encode.K5_LAUNCHES,
+             decode.K2_LAUNCHES, decode.K4_LAUNCHES)
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("mode", ["gather", "allgather"])
+def test_two_processes_on_the_card(dev, tmp_path, mode):
+    report = multiprocess_gather_check.run(
+        2, mode, "cuda", rows=20 * multiprocess_gather_check.BASE_ROWS,
+        timeout=240, work_dir=str(tmp_path))
+    assert report["counts"] == [6, 5]
+    for r in report["ranks"]:
+        assert r["ok"] and r["device"].startswith("cuda")
+        assert all(r["launches"][k] > 0 for k in ("K1", "K2", "K3", "K4"))
+        assert all(w > 32 for w in r["int_widths"])

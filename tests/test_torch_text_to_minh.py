@@ -1,6 +1,7 @@
 """The port's text_to_minh, end to end on the CPU: the file it writes
 equals the host codec's and the JAX package's --device file byte for
-byte, --device refuses to run without CUDA, and the port (converter,
+byte, --jobs=N writes the files of the sequential loop and of the
+reference's --jobs, --device refuses to run without CUDA, and the port (converter,
 readers, minh_to_bnd, the minp converter and reader) runs with jax and
 minnow_tpu unimportable."""
 
@@ -104,6 +105,101 @@ def test_device_flag_needs_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         text_to_minh.main([str(config), "all", str(hlist), str(tmp_path),
                            "--device"])
+    assert not list(tmp_path.glob("*.minh"))
+
+
+def _catalogs(tmp_path, sizes=(300, 40, 120)):
+    """Several catalogs of different sizes under one config, as
+    ``snap_<i>.list``; returns the config and the glob."""
+    config = None
+    for i, n in enumerate(sizes):
+        d = tmp_path / ("cat%d" % i)
+        d.mkdir()
+        config, hlist = write_catalog(d, n=n, seed=10 + i)
+        hlist.rename(tmp_path / ("snap_%d.list" % i))
+    return config, str(tmp_path / "snap_*.list")
+
+
+def _parsed(config):
+    cfg = text_to_minh.parse_config(str(config))
+    idx = text_to_minh.open_index(cfg["NameIndex"])
+    return (cfg, idx, text_to_minh.parse_types(cfg["TypeIndex"], idx),
+            text_to_minh.parse_vars("all", idx))
+
+
+def _files(d):
+    return {f.name: f.read_bytes() for f in sorted(d.glob("*.minh"))}
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+@pytest.mark.parametrize("jobs", [2, 8])
+def test_jobs_write_the_files_of_the_sequential_loop(tmp_path, device, jobs,
+                                                     monkeypatch):
+    """``convert_files`` with several jobs, on the host codec and on the
+    device encoder (one ``BlockEncoder`` shared by the jobs), against one
+    job and against the reference's ``convert_files``."""
+    import glob
+
+    from minnow_torch.parallel import pipeline
+
+    config, pattern = _catalogs(tmp_path)
+    files = sorted(glob.glob(pattern))
+    made = []
+    real = pipeline.BlockEncoder
+
+    def counting(dev):
+        made.append(dev)
+        return real(dev)
+
+    monkeypatch.setattr(text_to_minh, "BlockEncoder", counting)
+    outs = {}
+    for name, n in (("one", 1), ("many", jobs)):
+        outs[name] = tmp_path / name
+        outs[name].mkdir()
+        logged = []
+        text_to_minh.convert_files(*_parsed(config), files, str(outs[name]),
+                                   device=device, jobs=n, block_size=4000,
+                                   log=logged.append)
+        assert sum(line.startswith("Converting") for line in logged) == 3
+    assert made == ([] if device is None else ["cpu", "cpu"])
+    ref = tmp_path / "ref"
+    ref.mkdir()
+    jax_text_to_minh.convert_files(*_parsed(config), files, str(ref),
+                                   jobs=jobs, block_size=4000,
+                                   log=lambda line: None)
+    assert sorted(_files(outs["many"])) == ["snap_0.minh", "snap_1.minh",
+                                            "snap_2.minh"]
+    assert _files(outs["many"]) == _files(outs["one"]) == _files(ref)
+
+
+def test_jobs_flag_matches_the_reference_s(tmp_path, capsys):
+    config, pattern = _catalogs(tmp_path)
+    port, ref = tmp_path / "port", tmp_path / "ref"
+    port.mkdir()
+    ref.mkdir()
+    text_to_minh.main([str(config), "all", pattern, str(port), "--jobs=2",
+                       "--block-size=4000"])
+    lines = capsys.readouterr().out.splitlines()
+    # biggest file first
+    assert lines[0] == "Converting %s" % str(tmp_path / "snap_0.list")
+    assert len(lines) == 6
+    jax_text_to_minh.main([str(config), "all", pattern, str(ref),
+                           "--jobs=2", "--block-size=4000"])
+    assert len(_files(port)) == 3 and _files(port) == _files(ref)
+
+
+def test_jobs_refuse_two_inputs_of_one_output_name(tmp_path):
+    config, _ = _catalogs(tmp_path, sizes=(30,))
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    files = []
+    for d in "ab":
+        files.append(str(tmp_path / d / "snap.list"))
+        (tmp_path / d / "snap.list").write_bytes(
+            (tmp_path / "snap_0.list").read_bytes())
+    with pytest.raises(SystemExit, match="both map to output"):
+        text_to_minh.convert_files(*_parsed(config), files, str(tmp_path),
+                                   jobs=2)
     assert not list(tmp_path.glob("*.minh"))
 
 
