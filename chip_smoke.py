@@ -27,7 +27,16 @@ Phases, each of which raises at its first failure:
    7 after warm-up) beside its plain version; K1's three launches, the
    stats launch storing pixels, and K5 apart.  The path of K5,
    ``encode_float_group(reuse_q=True)``, runs once there with the launch
-   counts at zero around it, and its words must equal K1's;
+   counts at zero around it, and its words must equal K1's.
+   Last (the sweep is mostly ``core.spec`` on the host, and the card's
+   clocks fall while it waits, so the timings come first), K1, K5 and K2
+   at pixel counts of 2^31 and more (2^31 + 5 periodic with
+   a window over the circle's seam and spread over half of it, 2^31 and
+   2^33 non-periodic, 10^10 periodic with the data inside 2^31 pixels and
+   beyond), at (12, 200) ragged and at (64, 2^17), and 2^62 + 3 and
+   2^63 - 1 at (12, 200): against their plain versions and against
+   ``core.spec``, bitwise, ``BlockEncoder`` on the same batches with the
+   count of blocks it sent to the host encoder;
 4. the first main path: a 1,000,000-row Rockstar-style catalog through
    ``text_to_minh --device``, byte-compared with the file of the same
    converter in host mode, every float column read back on the card
@@ -35,7 +44,19 @@ Phases, each of which raises at its first failure:
    ``int`` columns with ``read_ints``, bitwise equal to the host reader.
    K1 to K4 must have been launched by this phase.  Before it, K1 to K4
    are checked against their plain versions, bitwise, and timed at the
-   shapes this phase gives them (one block of each column);
+   shapes this phase gives them (one block of each column).  Then a
+   second, 200,000-row catalog with two columns of 10^10 pixels (0 to
+   10^6 at 10^-4: ``wide`` with its values inside 2^31 pixels, ``far``
+   all over the range) through ``text_to_minh --device``, byte-compared
+   with host mode; both columns read back with ``read_floats`` in the
+   three modes, bitwise equal to the host reader; ``inspect_minh
+   --device`` prints what host mode prints.  K1 and K2 must have been
+   launched on it, and the blocks sent to the host encoder are ``far``'s.
+   Before its counts are set to zero the same conversion, reads and
+   inspection run once with every call of K1 to K4 held against its plain
+   version on the same tensors (``held_to_plain``), bitwise: the shapes
+   this catalog gives them, ``far``'s block that K1 does not certify
+   among them;
 5. the boundary path: a second 1,000,000-row catalog with ``int`` IDs
    above 2^53 through ``text_to_minh --device`` (byte-compared as in 4)
    and ``read_ints``, then ``minh_to_bnd --device`` at 8 cells and
@@ -80,18 +101,29 @@ Phases, each of which raises at its first failure:
    byte for byte and its decode methods the values, and ``text_to_minh
    --device --jobs=2`` on phase 4's and on phase 5's catalog (each under
    two names, so two jobs share one encoder) must write the files those
-   phases wrote;
+   phases wrote.  Then the file-level dry runs,
+   ``minnow_torch.tools.dryrun.dryrun`` on ``[card]`` and on ``[card,
+   card]``: minh, minp and boundary files through the several-share
+   encoder, byte-compared with the host writer's, and sharded decodes in
+   the three dither modes; K1 to K4 must have been launched.  Before
+   their counts are set to zero both dry runs go once through
+   ``held_to_plain``, which holds K1 to K4 against their plain versions
+   at every batch shape the steps give them;
 8. certification: ``validate.validate_backend`` on the card (quantize,
    dequantize, pack, and every kernel at every width against
    ``core.spec``) and ``selfcheck.kernel_ok`` of the three families, both
    printed; ``verify_minnow.verify(deep=True)`` finds no problem in one
    minh, one boundary and one minp file of the earlier phases and finds
-   some in a copy cut short.
+   some in a copy cut short;
+9. the ``cuda`` tests: ``pytest tests/test_torch_cuda.py --noconftest``
+   in a process of its own, with a time limit; its count of passes is
+   printed, and a failure, an error or no test run fails the script.
 
 The three self-check families are certified once right after phase 3's
 sweeps, outside every timed region and every counted run.  The runs of
 phases 4, 5, 6 and 7 and of K5's path in phase 3 each start the launch
-counts at zero and read them at their end.  The last three lines are the
+counts at zero and read them at their end, as do the wide-column run of
+phase 4 and the dry runs of phase 7.  The last three lines are the
 nvidia-smi line, a JSON line with each kernel's numbers (launches: the
 sum over those runs, phase 7's summed over its ranks; ``bound_ms``: the
 least time the card could take for the flagship call, from its bytes and
@@ -111,7 +143,9 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
+import subprocess
 import sys
 import time
 
@@ -130,7 +164,9 @@ from minnow_torch.formats import minp_device  # noqa: E402
 from minnow_torch.ingest import lgadget2, snapshot  # noqa: E402
 from minnow_torch.ops import _build, bitpack, codec, decode  # noqa: E402
 from minnow_torch.ops import encode, selfcheck, validate  # noqa: E402
+from minnow_torch.parallel import pipeline  # noqa: E402
 from minnow_torch.parallel.pipeline import BlockEncoder  # noqa: E402
+from minnow_torch.tools import dryrun  # noqa: E402
 from minnow_torch.tools import multiprocess_gather_check  # noqa: E402
 from minnow_torch.utils.device import (card_info, cuda_device,  # noqa: E402
                                        time_ms)
@@ -149,6 +185,12 @@ FILE_CELLS, SUB_CELLS, SNAP_DX, SNAP_DV = 2, 8, 0.001, 1.0
 # phase 7: worker processes on the one card, the rows of their catalog (the
 # check's 11 ragged row-blocks scaled by 1,776) and each run's time limit
 MP_PROCS, MP_ROWS, MP_LIMIT = 4, 999_888, 300
+# phase 3: (blocks, elements) of the batches at pixel counts of 2^31 and
+# more; phase 4: the rows of the catalog with the 10^10-pixel columns
+WIDE_SHAPES = ((12, 200), (64, 1 << 17))
+WIDE_ROWS = 200_000
+# phase 9: the time limit of the cuda tests' process
+TESTS_LIMIT = 420
 
 
 def log(*args):
@@ -300,7 +342,7 @@ def check_k2(dev, rng):
                              dtype=np.uint64).astype(np.uint32)
         mins = rng.integers(-(1 << 40), 1 << 40, b)
         mins[0] = 0
-        pixels = rng.integers(1, 1 << 31, b)
+        pixels = rng.integers(1, 1 << 34, b)
         params = codec.block_params(rng.uniform(-10, 0, b),
                                     rng.uniform(100, 300, b), pixels,
                                     np.array([1, 1, 0], bool), dev)
@@ -383,6 +425,148 @@ def wide_batch(rng, n):
     x[:, :2] = (lo, hi)
     return x, np.zeros(2), np.full(2, float(1 << 30)), np.full(2, 1 << 30), \
         np.zeros(2, bool), np.array([n, n - 7], np.int64)
+
+
+def top_of_range_blocks(rng, b, n):
+    """``b`` float blocks of ``n`` elements at the widest pixel counts,
+    2^62 + 3 and 2^63 - 1 periodic and 2^63 - 1 non-periodic in turn,
+    their pixels inside [0, 2^31): K1 must certify every one.  Returns
+    what ``selfcheck.wide_float_blocks`` returns."""
+    kinds = (((1 << 62) + 3, True), ((1 << 63) - 1, True),
+             ((1 << 63) - 1, False))
+    pixels = np.array([kinds[i % 3][0] for i in range(b)], np.int64)
+    periodic = np.array([kinds[i % 3][1] for i in range(b)], bool)
+    low, high = np.zeros(b, np.float32), np.full(b, 1.0e6, np.float32)
+    dx = np.array([spec.quantize_dx(0.0, 1.0e6, int(p)) for p in pixels],
+                  np.float32)
+    top = (np.float32((1 << 31) - 1024) * dx).astype(np.float64)
+    x = rng.uniform(0.0, 1.0, (b, n)) * top[:, None]
+    x[::4] = 0.5 * top[::4, None] + 0.001 * x[::4]  # clusters: few bits
+    return x.astype(np.float32), low, high, pixels, periodic, np.ones(b, bool)
+
+
+def check_wide_batch(dev, rng, b, n, blocks=None):
+    """K1, K5 and K2 on ``b`` blocks of ``n`` elements at pixel counts of
+    2^31 and more (``blocks``, by default ``selfcheck.wide_float_blocks``'s;
+    every fourth block ragged): K1's stats, plan and pack launches, K5 and both whole calls
+    against their plain versions and against ``spec``'s bytes, minimums
+    and widths on every block that must be certified; ``BlockEncoder`` on
+    the batch against ``spec`` on every block, with the blocks it sent to
+    the host encoder; K2 through ``decode_float_blocks`` on ``spec``'s
+    payloads (the 34-bit ones among them) against the host reader in the
+    three modes, and on one width bucket against its plain version.
+    Returns the number of blocks sent to the host."""
+    x, low, high, pixels, periodic, certified = (
+        blocks or selfcheck.wide_float_blocks(rng, b, n))
+    lens = np.full(b, n, np.int64)
+    lens[3::4] = n - 5
+    params = codec.block_params(low, high, pixels, periodic, dev)
+    xt, lt = torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev)
+    q = torch.zeros(x.shape, dtype=torch.int32, device=dev)
+    q_plain = q.clone()
+    stats = encode.float_stats(xt, params, lt, q_out=q)
+    err = max(int_err(stats, encode.float_stats_plain(xt, params, lt,
+                                                      q_out=q_plain)),
+              int_err(stats, encode.float_stats(xt, params, lt)),
+              int_err(q, q_plain))
+    plan = encode.plan_float(stats, params, lt)
+    dplan = encode.float_plan(stats, params, lt)
+    if not (plan_eq(encode.read_plan(dplan), plan) and torch.equal(
+            dplan, encode.float_plan_plain(stats, params, lt))):
+        raise AssertionError("wide pixel counts: the plan launch differs "
+                             "from plan_float")
+    if not np.array_equal(plan.valid, certified):
+        raise AssertionError("wide pixel counts: K1 certified %s, want %s"
+                             % (plan.valid, certified))
+    words = encode.pack_float(xt, params, lt, plan)
+    err = max(err, int_err(words, encode.pack_float_plain(xt, params, lt,
+                                                          plan)),
+              int_err(encode.pack_float_q(q, params, lt, plan), words))
+    for reuse_q in (False, True):
+        w, p = encode.encode_float_group(xt, params, lt, reuse_q=reuse_q)
+        if not plan_eq(p, plan):
+            raise AssertionError("wide pixel counts: encode_float_group("
+                                 "reuse_q=%s): plan differs" % reuse_q)
+        err = max(err, int_err(w, words))
+    if err:
+        raise AssertionError("wide pixel counts at (%d, %d): max err %d "
+                             "against the plain versions" % (b, n, err))
+
+    want = [spec.encode_float_block(x[i, :lens[i]], low[i], high[i],
+                                    int(pixels[i]), bool(periodic[i]))
+            for i in range(b)]
+    words_h = words.cpu().numpy()
+    for i in np.nonzero(certified)[0]:
+        payload, mn, bits, _ = want[i]
+        if (selfcheck.payload_of(words_h, plan, i, int(lens[i])),
+                int(plan.mins[i]), int(plan.bits[i])) != (payload, mn, bits):
+            raise AssertionError("wide pixel counts: K1 differs from spec "
+                                 "at %d pixels, block %d" % (pixels[i], i))
+    before = pipeline.HOST_BLOCKS
+    enc = BlockEncoder(dev).encode_float_blocks(x, low, high, pixels,
+                                                lens=lens, periodic=periodic)
+    sent = pipeline.HOST_BLOCKS - before
+    if sent != int((~certified).sum()):
+        raise AssertionError("wide pixel counts: %d blocks went to the host "
+                             "encoder, want %d" % (sent, (~certified).sum()))
+    for i, (payload, mn, bits, _) in enumerate(want):
+        if (enc.payloads[i], int(enc.mins[i]), int(enc.bits[i])) != (
+                payload, mn, bits):
+            raise AssertionError("wide pixel counts: BlockEncoder differs "
+                                 "from spec at block %d" % i)
+
+    # K2 on the full-length blocks (decode_float_blocks takes one length)
+    full = np.nonzero(lens == n)[0]
+    ids = full + (1 << 33)
+    for mode in codec.DITHER_MODES:
+        got = BlockEncoder(dev).decode_float_blocks(
+            [want[i][0] for i in full], [want[i][1] for i in full],
+            [want[i][2] for i in full], low[full], high[full], pixels[full],
+            n, periodic=periodic[full], dither=mode, seed=9, block_ids=ids)
+        for row, i in enumerate(full):
+            payload, mn, bits, _ = want[i]
+            ref = selfcheck.spec_decode_float(
+                bitpack.bytes_to_words(payload, bits, n), mn, bits, n, low[i],
+                high[i], int(pixels[i]), bool(periodic[i]), mode, 9,
+                int(ids[row]))
+            if not np.array_equal(got[row].view(np.int32),
+                                  ref.view(np.int32)):
+                raise AssertionError(
+                    "wide pixel counts: K2 %s differs from the host reader "
+                    "at %d pixels, block %d" % (mode, pixels[i], i))
+    # and against its plain version: the widest bucket and the 34-bit one
+    widths = np.array([want[i][2] for i in full])
+    for width in {int(np.bincount(widths).argmax()), int(widths.max())}:
+        idx = full[widths == width]
+        col = (torch.from_numpy(np.stack([bitpack.bytes_to_words(
+            want[i][0], width, n) for i in idx]).view(np.int32)).to(dev),
+            torch.tensor([want[i][1] for i in idx], device=dev),
+            codec.block_params(low[idx], high[idx], pixels[idx],
+                               periodic[idx], dev), width, n)
+        keys = codec.dither_keys(idx, 9, dev)
+        for mode in codec.DITHER_MODES:
+            float_err(decode.decode_float_group(*col, mode, *keys),
+                      decode.decode_float_plain(*col, mode, *keys))
+    log("wide pixel counts %s, (%d, %d): K1's launches, K5 and both calls "
+        "bitwise equal to the plain versions and to spec (certified %d of "
+        "%d, widths %s); BlockEncoder equal to spec on all, %d blocks sent "
+        "to the host encoder; K2 in three modes equal to the host reader "
+        "and to its plain version (widths %s)"
+        % (sorted({int(c) for c in pixels}), b, n, certified.sum(), b,
+           sorted({int(w) for w in plan.bits[plan.valid]}), sent,
+           sorted({int(w) for w in widths})))
+    return sent
+
+
+def check_wide_pixels(dev, rng):
+    """:func:`check_wide_batch` at every shape of ``WIDE_SHAPES``, and at
+    the first of them on :func:`top_of_range_blocks`."""
+    t0 = time.perf_counter()
+    sent = sum(check_wide_batch(dev, rng, b, n) for b, n in WIDE_SHAPES)
+    b, n = WIDE_SHAPES[0]
+    sent += check_wide_batch(dev, rng, b, n, top_of_range_blocks(rng, b, n))
+    log("wide pixel counts: %d blocks sent to the host encoder in all, "
+        "%.1f s" % (sent, time.perf_counter() - t0))
 
 
 def check_tile_entries(dev, rng):
@@ -949,6 +1133,130 @@ def main_path(dev):
         log("stages, %s: %s" % (label, ", ".join(
             "%s %.3f s" % (k, v["seconds"])
             for k, v in timer.report().items())))
+    t0 = time.perf_counter()
+    wide = wide_column_path(dev, os.path.join(WORK, "wide"), WIDE_ROWS)
+    log("wide column: %.1f s" % (time.perf_counter() - t0))
+    return {k: launches[k] + wide[k] for k in KERNELS}
+
+
+def write_wide_catalog(d, rows, seed=2027):
+    """A small catalog with two float columns of 10^10 pixels (0 to 10^6
+    at 10^-4): ``wide`` holds values inside the first 2^31 pixels, ``far``
+    values all over the range, whose pixels pass an int32.  Returns the
+    config and the hlist."""
+    rng = np.random.default_rng(seed)
+    cols = [np.arange(rows, dtype=np.int64) + (1 << 40),
+            10.0 ** rng.uniform(10, 15, rows), rng.uniform(0, 250, rows),
+            rng.uniform(0, 2.0e5, rows), rng.uniform(0, 999999.0, rows)]
+    lines = ["%d %.5e %.5f %.4f %.3f" % t
+             for t in zip(*(c.tolist() for c in cols))]
+    hlist = os.path.join(d, "hlist_1.00000.list")
+    with open(hlist, "w") as f:
+        f.write("#ID Mvir X Wide Far\n")
+        f.write("\n".join(lines))
+        f.write("\n")
+    with open(os.path.join(d, "names.txt"), "w") as f:
+        f.write("id ID\nmvir Mvir\nx X\nwide Wide\nfar Far\n")
+    with open(os.path.join(d, "types.txt"), "w") as f:
+        f.write("id int\nmvir q_float log 1e5 1e16 0.001\n"
+                "x q_float position\n"
+                "wide q_float linear 0 1e6 1e-4\n"
+                "far q_float linear 0 1e6 1e-4\n")
+    config = os.path.join(d, "run.config")
+    with open(config, "w") as f:
+        f.write("[minh]\nL = 250\nEpsilon = 0.001\nMp = 1.54975e+08\n"
+                "MinParticles = 50\nMassName = mvir\n"
+                "NameIndex = %s\nTypeIndex = %s\n"
+                % (os.path.join(d, "names.txt"),
+                   os.path.join(d, "types.txt")))
+    return config, hlist
+
+
+def read_wide_columns(fname, dev):
+    """``wide`` and ``far`` of ``fname`` read on the card one at a time in
+    the three modes, bitwise equal to the host reader; every read must
+    launch K2.  Returns the number of rows."""
+    for mode in ("none", "midpoint", "uniform"):
+        r = minh.open(fname, dither=mode, seed=7)
+        try:
+            for name in ("wide", "far"):
+                before = decode.K2_LAUNCHES
+                got = minh_device.read_floats(r, [name], dev)[name]
+                want = r.floats([name])[name]
+                if decode.K2_LAUNCHES <= before:
+                    raise AssertionError("read_floats(%s) launched no K2"
+                                         % name)
+                if got.shape != (r.length,) or not np.array_equal(
+                        got.view(np.int32), want.view(np.int32)):
+                    raise AssertionError(
+                        "read_floats(%s) differs from the host reader in "
+                        "mode %s" % (name, mode))
+            kept = r.length
+        finally:
+            r.close()
+    return kept
+
+
+def wide_column_path(dev, work, rows):
+    """The wide column through the main path: ``text_to_minh --device`` of
+    :func:`write_wide_catalog`'s catalog into ``work``, byte-compared
+    with host mode; ``wide`` and ``far`` read back on the card in the
+    three modes, bitwise equal to the host reader; ``inspect_minh
+    --device`` against host mode.  Before it the same conversion, reads
+    and inspection run once under :func:`held_to_plain`: K1 on the four
+    float columns of the row-block (``far``'s words, which the encoder
+    replaces with the host's, among them), K3 on the IDs, K2 and K4 a
+    column a call.  Then the counts start at zero; K1 and K2 must have
+    been launched, K2 on each of the two columns, and the blocks sent to
+    the host encoder must be ``far``'s.  Returns the launches."""
+    for sub in ("device", "host", "held"):
+        os.makedirs(os.path.join(work, sub))
+    config, hlist = write_wide_catalog(work, rows)
+    held = os.path.join(work, "held", "hlist_1.00000.minh")
+    with held_to_plain({}) as seen:
+        text_to_minh.main([config, "all", hlist, os.path.dirname(held),
+                           "--device"])
+        read_wide_columns(held, dev)
+        printed(inspect_minh.main, [held, "--device"])
+    need({k: len(seen.get(k, ())) for k in KERNELS}, KERNELS[:4],
+         "the wide column's path under held_to_plain")
+    log_held("wide column's shapes", seen)
+
+    reset_counts()
+    sent = pipeline.HOST_BLOCKS
+    dev_file, _, _ = convert_both(config, hlist, work)
+    sent = pipeline.HOST_BLOCKS - sent
+    encoded = counts()
+    need(encoded, ("K1",), "the wide column's conversion")
+
+    names = ["wide", "far"]
+    r = minh.open(dev_file)
+    try:
+        col = r.columns[r._col("wide")]
+        pixels = spec.float_group_pixels(col.low, col.high, col.dx)
+        widths = {n: minh_device.block_widths(r, n) for n in names}
+        blocks = r.blocks
+    finally:
+        r.close()
+    if pixels < 1 << 33 or max(widths["wide"]) > 31 or \
+            min(widths["far"]) < 33 or sent != blocks:
+        raise AssertionError(
+            "the wide column: %d pixels, widths %s, %d of %d blocks sent to "
+            "the host encoder" % (pixels, widths, sent, blocks))
+    kept = read_wide_columns(dev_file, dev)
+    out = printed(inspect_minh.main, [dev_file, "--device"])
+    if out != printed(inspect_minh.main, [dev_file]):
+        raise AssertionError("inspect_minh --device prints otherwise than "
+                             "host mode on the wide column's file")
+    launches = counts()
+    need(launches, ("K1", "K2"), "the wide column's path")
+    log("wide column: %d rows, %d pixels a column; --device file "
+        "byte-identical to host mode; widths wide %s, far %s; %d block(s) "
+        "sent to the host encoder (far's); read_floats of both in three "
+        "modes bitwise equal to the host reader; inspect_minh --device "
+        "prints host mode's %d lines; launches %s (K1 %d in the conversion)"
+        % (kept, pixels, widths["wide"], widths["far"], sent,
+           len(out.splitlines()), launches, encoded["K1"]))
     return launches
 
 
@@ -1045,6 +1353,85 @@ def printed(fn, *args):
     with contextlib.redirect_stdout(buf):
         fn(*args)
     return buf.getvalue()
+
+
+@contextlib.contextmanager
+def held_to_plain(seen):
+    """While it is open, every call the host layers make to a kernel's
+    entry also runs the plain version on the same tensors and raises
+    unless the two are bitwise equal: ``encode.start_float_group`` (K1:
+    its stats rows, its plan and its words), ``encode.encode_int_group``
+    (K3), ``decode.decode_float_group`` (K2) and ``decode.decode_int_group``
+    (K4).  ``seen`` gathers each call's shape by kernel.  It holds the
+    kernels at whatever shapes a path gives them: a path runs under it
+    once before its counted run, so none of these launches is counted."""
+    real = (encode.start_float_group, encode.encode_int_group,
+            decode.decode_float_group, decode.decode_int_group)
+
+    def start_float_group(x, params, lens, reuse_q=False, capacity=None):
+        pending = real[0](x, params, lens, reuse_q, capacity)
+        if x.shape[0] == 0:
+            return pending
+        words, plan = encode.finish_float_group(pending)
+        stats = encode.float_stats_plain(x, params, lens)
+        err = int_err(encode.float_stats(x, params, lens), stats)
+        dplan = encode.float_plan(stats, params, lens)
+        if err or not plan_eq(encode.read_plan(dplan), plan) or \
+                not torch.equal(dplan, encode.float_plan_plain(stats, params,
+                                                               lens)):
+            raise AssertionError("K1 at %s: stats (max err %d) or plan "
+                                 "differ from the plain versions"
+                                 % (tuple(x.shape), err))
+        err = int_err(words, encode.pack_float_plain(x, params, lens, plan))
+        if err:
+            raise AssertionError("K1 at %s: words differ from the plain "
+                                 "version's, max err %d"
+                                 % (tuple(x.shape), err))
+        seen.setdefault("K1", []).append(tuple(x.shape))
+        return pending
+
+    def encode_int_group(x, lens, stats=None):
+        words, plan = real[1](x, lens, stats)
+        err = int_err(words, encode.delta_pack_int_plain(x, lens, plan))
+        if err:
+            raise AssertionError("K3 at %s: max err %d against the plain "
+                                 "version" % (tuple(x.shape), err))
+        seen.setdefault("K3", []).append(tuple(x.shape))
+        return words, plan
+
+    def decode_float_group(words, mins, params, bits, n, dither, k1=None,
+                           k2=None):
+        args = (words, mins, params, bits, n, dither, k1, k2)
+        got = real[2](*args)
+        float_err(got, decode.decode_float_plain(*args))
+        seen.setdefault("K2", []).append((words.shape[0], n, bits))
+        return got
+
+    def decode_int_group(words, mins, bits, n):
+        got = real[3](words, mins, bits, n)
+        same_ints(got, decode.decode_int_plain(words, mins, bits, n),
+                  "K4 at (%d, %d), %d bits" % (words.shape[0], n, bits))
+        seen.setdefault("K4", []).append((words.shape[0], n, bits))
+        return got
+
+    encode.start_float_group = start_float_group
+    encode.encode_int_group = encode_int_group
+    decode.decode_float_group = decode_float_group
+    decode.decode_int_group = decode_int_group
+    try:
+        yield seen
+    finally:
+        (encode.start_float_group, encode.encode_int_group,
+         decode.decode_float_group, decode.decode_int_group) = real
+
+
+def log_held(what, seen):
+    """One line for a path that ran under :func:`held_to_plain`."""
+    log("%s, every kernel call held against its plain version on the same "
+        "tensors, bitwise equal: %s (K1, K3: (blocks, elements); K2, K4: "
+        "(blocks, elements, bits))"
+        % (what, "; ".join("%s %d calls at %s" % (k, len(v), sorted(set(v)))
+                           for k, v in sorted(seen.items()))))
 
 
 def bucket(words, plan, n, k):
@@ -1680,6 +2067,32 @@ def jobs_conversions():
             % (label, seconds, size, len(out.splitlines())))
 
 
+def dry_runs(dev):
+    """The file-level dry runs on ``[card]`` and on ``[card, card]``:
+    once under :func:`held_to_plain`, which holds K1 to K4 at every batch
+    shape the steps give them, then with the counts at zero before them.
+    Returns the launches."""
+    shares = ([dev], [dev, dev])
+    with held_to_plain({}) as seen:
+        for devices in shares:
+            dryrun.dryrun(devices)
+    need({k: len(seen.get(k, ())) for k in KERNELS}, KERNELS[:4],
+         "the dry runs under held_to_plain")
+    log_held("dry runs' shapes", seen)
+    reset_counts()
+    for devices in shares:
+        t0 = time.perf_counter()
+        out = dryrun.dryrun(devices)
+        torch.cuda.synchronize()
+        log("dryrun on %d share(s): %s; %.2f s"
+            % (len(devices), ", ".join(
+                "%s (%d bytes)" % (k, len(v)) if isinstance(v, bytes) else k
+                for k, v in out.items()), time.perf_counter() - t0))
+    launches = counts()
+    need(launches, KERNELS[:4], "the dry runs")
+    return launches
+
+
 def multiprocess_path(dev):
     """Phase 7.  Returns its launches: the workers' and this process's."""
     check_multiprocess_shapes(dev)
@@ -1689,8 +2102,10 @@ def multiprocess_path(dev):
     jobs_conversions()
     here = counts()
     need(here, KERNELS[:4], "the two-share encoder and --jobs")
-    log("phase 7 launches: workers %s, this process %s" % (total, here))
-    return {k: total[k] + here[k] for k in KERNELS}
+    dry = dry_runs(dev)
+    log("phase 7 launches: workers %s, this process %s, the dry runs %s"
+        % (total, here, dry))
+    return {k: total[k] + here[k] + dry[k] for k in KERNELS}
 
 
 # -- phase 8: certification ---------------------------------------------------
@@ -1742,6 +2157,31 @@ def certification(dev):
         % problems)
 
 
+def cuda_tests():
+    """Phase 9: the ``cuda`` tests in a process of their own.  Raises
+    unless pytest exits 0 with at least one test passed and none failed;
+    prints the count and the five slowest tests, returns the count of
+    passes."""
+    cmd = [sys.executable, "-m", "pytest", "tests/test_torch_cuda.py",
+           "--noconftest", "-q", "-p", "no:cacheprovider", "--durations=5"]
+    run = subprocess.run(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         timeout=TESTS_LIMIT)
+    tail = run.stdout.strip().splitlines()[-1:] or [""]
+    found = {word: int(n) for n, word in re.findall(
+        r"(\d+) (passed|failed|errors?|skipped)", tail[0])}
+    passed = found.get("passed", 0)
+    bad = sum(v for k, v in found.items() if k != "passed")
+    if run.returncode != 0 or passed < 1 or bad:
+        raise AssertionError("the cuda tests: exit code %d, %s\n%s"
+                             % (run.returncode, found, run.stdout[-4000:]))
+    log("cuda tests: %s (%s); the slowest: %s"
+        % (tail[0].strip("= "), " ".join(cmd[1:]), "; ".join(
+            " ".join(line.split()) for line in run.stdout.splitlines()
+            if re.match(r"\d+\.\d+s call", line))))
+    return passed
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch %s)" % torch.__version__)
@@ -1772,6 +2212,7 @@ def main():
     certify_families(dev)
     reuse_path = flagship(dev, results)
     need(reuse_path, ("K1", "K5"), "the reuse_q path")
+    check_wide_pixels(dev, rng)
 
     t0 = time.perf_counter()
     first = main_path(dev)
@@ -1788,6 +2229,10 @@ def main():
     t0 = time.perf_counter()
     certification(dev)
     log("phase 8: %.1f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    passed = cuda_tests()
+    log("phase 9: %d cuda tests passed, %.1f s"
+        % (passed, time.perf_counter() - t0))
     runs = (reuse_path, first, second, third, fourth)
     launches = {k: sum(run[k] for run in runs) for k in KERNELS}
 

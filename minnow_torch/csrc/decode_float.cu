@@ -8,7 +8,8 @@
 // thread per element i of block b, from the block's row of packed words:
 //
 //   q = delta_i + min                              (wrapping, 64 bits)
-//   periodic blocks: one +-pixels step into [0, pixels)      (spec.bound)
+//   periodic blocks: one +-pixels step into [0, pixels)      (spec.bound;
+//     pixels is a 64-bit count, anything in [1, 2^63))
 //   v = f32(f64(q) + f64(u))   u = 0, 0.5, or dither_hash_u(i, k1, k2)
 //   out = f32(dx * v) + low                              (spec.dequantize)
 //
@@ -55,7 +56,7 @@ __global__ void __launch_bounds__(kThreads)
 decode_kernel(const uint32_t* __restrict__ words, long long row_words,
               long long n, int bits, const long long* __restrict__ mins,
               const float* __restrict__ low, const float* __restrict__ dx,
-              const int* __restrict__ pixels,
+              const long long* __restrict__ pixels,
               const unsigned char* __restrict__ periodic, int mode,
               const uint32_t* __restrict__ k1,
               const uint32_t* __restrict__ k2, float* __restrict__ out) {
@@ -89,7 +90,7 @@ decode_kernel(const uint32_t* __restrict__ words, long long row_words,
 }  // namespace
 
 // words (B, row_words) uint32 stream rows at width bits (0..64); mins (B,)
-// int64; low, dx (B,) float32; pixels (B,) int32; periodic (B,) bool;
+// int64; low, dx (B,) float32; pixels (B,) int64; periodic (B,) bool;
 // mode 0 none, 1 midpoint, 2 uniform (k1, k2 (B,) uint32 keys; may be
 // null otherwise); out (B, n) float32; grid (B, grid_y).
 extern "C" int minnow_decode_float(const void* words, long long B,
@@ -103,7 +104,7 @@ extern "C" int minnow_decode_float(const void* words, long long B,
   const dim3 grid((unsigned int)B, grid_y);
   decode_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)words, row_words, n, bits, (const long long*)mins,
-      (const float*)low, (const float*)dx, (const int*)pixels,
+      (const float*)low, (const float*)dx, (const long long*)pixels,
       (const unsigned char*)periodic, mode, (const uint32_t*)k1,
       (const uint32_t*)k2, (float*)out);
   return (int)cudaGetLastError();

@@ -77,12 +77,18 @@
 // A block is `valid` unless an element's pixel is not finite or has
 // |q| >= 2^31, or a periodic block holds a pixel outside [0, pixels);
 // the caller encodes invalid blocks with the normative host encoder.
+// The pixel counts are 64-bit, anything in [1, 2^63): a block is judged
+// by the pixels its data holds, never by its count.  The pixels and the
+// stats stay ints; only the circle's arithmetic widens, for the blocks
+// whose count does not fit an int (periodic_distance), and the plan and
+// the recentring in the pack were 64-bit all along.
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "bitstream.cuh"
 
@@ -117,15 +123,29 @@ __device__ __forceinline__ Pixel quantize(float x, float low, float dx) {
   return r;
 }
 
-// spec.periodic_distance (minnow_tpu/core/spec.py:130) for x and x0 in
-// [0, p), p < 2^31: every intermediate fits an int.  Written with selects
-// so that a thread's elements run without branches; for an x outside
-// [0, p) the result means nothing and the subtraction wraps.
-__device__ __forceinline__ int periodic_distance(int x, int x0, int p) {
-  const int d = (int)((unsigned int)x - (unsigned int)x0);
-  const int up = d > p - d ? d - p : d;
-  const int down = d < -(d + p) ? p + d : d;
-  return d >= 0 ? up : down;
+// spec.periodic_distance (minnow_tpu/core/spec.py:130) for pixels x and x0
+// in [0, p) that fit an int.  P is the type the count p is held in: int
+// where p < 2^31, and then every intermediate fits an int; long long for
+// the counts from 2^31 up to 2^63.  The result fits an int for every p:
+// it is d = x - x0, or one step of p from d, and then p < 2^32 and the
+// step leaves at most p / 2.  Written with selects so that a thread's
+// elements run without branches, and in unsigned arithmetic, so that for
+// an x outside [0, p), where the result means nothing, the sums wrap.
+template <class P>
+__device__ __forceinline__ int periodic_distance(int x, int x0, P p) {
+  using U = std::make_unsigned_t<P>;
+  const P d = (P)((U)x - (U)x0);
+  const P up = d > (P)((U)p - (U)d) ? (P)((U)d - (U)p) : d;
+  const P down = d < (P)((U)0 - ((U)d + (U)p)) ? (P)((U)p + (U)d) : d;
+  return (int)(d >= 0 ? up : down);
+}
+
+// Whether the pixel q lies in [0, p).
+__device__ __forceinline__ bool on_circle(int q, int p) {
+  return (unsigned int)q < (unsigned int)p;
+}
+__device__ __forceinline__ bool on_circle(int q, long long p) {
+  return q >= 0 && q < p;
 }
 
 __global__ void stats_init_kernel(int* __restrict__ stats, long long B) {
@@ -145,7 +165,8 @@ __global__ void stats_init_kernel(int* __restrict__ stats, long long B) {
 __global__ void __launch_bounds__(kThreads)
 stats_kernel(const float* __restrict__ x, long long n, int run,
              unsigned int runs_per_row, const float* __restrict__ low,
-             const float* __restrict__ dx, const int* __restrict__ pixels,
+             const float* __restrict__ dx,
+             const long long* __restrict__ pixels,
              const unsigned char* __restrict__ periodic,
              const long long* __restrict__ lens, int* __restrict__ stats,
              int* __restrict__ q) {
@@ -159,40 +180,49 @@ stats_kernel(const float* __restrict__ x, long long n, int run,
   const float* xt = xb + start;
   int* qt = q ? q + (long long)b * n + start : nullptr;
   const float lo = low[b], d = dx[b];
-  const int p = pixels[b];
+  const long long pixels_b = pixels[b];
   const bool per = periodic[b] != 0;
 
   const Pixel first = quantize(xb[0], lo, d);
-  const bool first_in = first.ok && first.q >= 0 && first.q < p;
+  const bool first_in = first.ok && first.q >= 0 && first.q < pixels_b;
 
   int ymin = INT_MAX, ymax = INT_MIN, qmin = INT_MAX, qmax = INT_MIN;
   unsigned int valid = 1;
-  // an uncertified pixel clears valid and counts in no minimum or maximum;
-  // so does, in a periodic block, a pixel outside [0, p)
-  auto take = [&](float xi, int i) {
-    const Pixel r = quantize(xi, lo, d);
-    if (qt) qt[i] = r.q;
-    const bool in = r.ok && (!per || (unsigned int)r.q < (unsigned int)p);
-    valid &= in;
-    qmin = min(qmin, r.ok ? r.q : INT_MAX);
-    qmax = max(qmax, r.ok ? r.q : INT_MIN);
-    if (per && first_in) {
-      const int y = periodic_distance(r.q, first.q, p);
-      ymin = min(ymin, in ? y : INT_MAX);
-      ymax = max(ymax, in ? y : INT_MIN);
+  // The run's elements, with the block's count p held as an int where it
+  // fits and as a long long where it does not: the choice is made once a
+  // CTA, and the blocks below 2^31 pixels pay nothing for the others.
+  auto reduce = [&](auto p) {
+    // an uncertified pixel clears valid and counts in no minimum or
+    // maximum; so does, in a periodic block, a pixel outside [0, p)
+    auto take = [&](float xi, int i) {
+      const Pixel r = quantize(xi, lo, d);
+      if (qt) qt[i] = r.q;
+      const bool in = r.ok && (!per || on_circle(r.q, p));
+      valid &= in;
+      qmin = min(qmin, r.ok ? r.q : INT_MAX);
+      qmax = max(qmax, r.ok ? r.q : INT_MIN);
+      if (per && first_in) {
+        const int y = periodic_distance(r.q, first.q, p);
+        ymin = min(ymin, in ? y : INT_MAX);
+        ymax = max(ymax, in ? y : INT_MIN);
+      }
+    };
+    // four loads in flight before the first division
+    int i = threadIdx.x;
+    for (; i + 3 * kThreads < cnt; i += 4 * kThreads) {
+      const float x0 = xt[i], x1 = xt[i + kThreads];
+      const float x2 = xt[i + 2 * kThreads], x3 = xt[i + 3 * kThreads];
+      take(x0, i);
+      take(x1, i + kThreads);
+      take(x2, i + 2 * kThreads);
+      take(x3, i + 3 * kThreads);
     }
+    for (; i < cnt; i += kThreads) take(xt[i], i);
   };
-  // four loads in flight before the first division
-  int i = threadIdx.x;
-  for (; i + 3 * kThreads < cnt; i += 4 * kThreads) {
-    const float x0 = xt[i], x1 = xt[i + kThreads];
-    const float x2 = xt[i + 2 * kThreads], x3 = xt[i + 3 * kThreads];
-    take(x0, i);
-    take(x1, i + kThreads);
-    take(x2, i + 2 * kThreads);
-    take(x3, i + 3 * kThreads);
-  }
-  for (; i < cnt; i += kThreads) take(xt[i], i);
+  if (pixels_b <= INT_MAX)
+    reduce((int)pixels_b);
+  else
+    reduce(pixels_b);
   const unsigned int all = 0xffffffffu;
   ymin = __reduce_min_sync(all, ymin);
   ymax = __reduce_max_sync(all, ymax);
@@ -256,9 +286,12 @@ __device__ __forceinline__ long long cta_inclusive_scan(long long v,
 }
 
 // One CTA of kPlanThreads threads: codec.finish_float_stats and the width,
-// word count and word offset of every block.
+// word count and word offset of every block.  All of it is 64-bit: the
+// count alone can pass an int, and so does the sum q0 + ymin + pixels on
+// the way to the offset m (itself the pixel the window starts at).
 __global__ void __launch_bounds__(kPlanThreads)
-plan_kernel(const int* __restrict__ stats, const int* __restrict__ pixels,
+plan_kernel(const int* __restrict__ stats,
+            const long long* __restrict__ pixels,
             const unsigned char* __restrict__ periodic,
             const long long* __restrict__ lens, long long B,
             long long* __restrict__ plan) {
@@ -387,7 +420,7 @@ __global__ void __launch_bounds__(kPackThreads)
 pack_tiles_kernel(const T* __restrict__ src, long long n,
                   unsigned int tiles_per_row, unsigned int n_tiles,
                   const float* __restrict__ low, const float* __restrict__ dx,
-                  const int* __restrict__ pixels,
+                  const long long* __restrict__ pixels,
                   const unsigned char* __restrict__ periodic,
                   const long long* __restrict__ plan, long long B,
                   const long long* __restrict__ lens,
@@ -458,6 +491,10 @@ pack_tiles_kernel(const T* __restrict__ src, long long n,
         const long long p = pixels[b];
         const bool per = periodic[b] != 0;
         const long long mb = plan[kPM * B + b], minb = plan[kPMins * B + b];
+        // the window's end, mb + p, held at the largest long long where the
+        // sum would pass it (no pixel reaches that): once a block, so that
+        // an element pays one compare as it does below 2^31 pixels
+        const long long top = mb > LLONG_MAX - p ? LLONG_MAX : mb + p;
         const uint32_t mask = width >= 32 ? ~0u : (1u << width) - 1u;
         uint32_t v[32];
 #pragma unroll
@@ -473,7 +510,7 @@ pack_tiles_kernel(const T* __restrict__ src, long long n,
           long long q = pixel(v[k]);
           if (per) {
             if (q < mb) q += p;
-            if (q >= mb + p) q -= p;
+            if (q >= top) q -= p;
           }
           // past the block's end a ragged group packs zeros
           v[k] = first + k < cur.cnt ? (uint32_t)(q - minb) & mask : 0u;
@@ -541,7 +578,7 @@ int launch_pack(const void* src, long long B, long long n, const void* low,
   const unsigned int grid = (unsigned int)(ctas < n_tiles ? ctas : n_tiles);
   pack_tiles_kernel<T><<<grid, kPackThreads, 0, (cudaStream_t)stream>>>(
       (const T*)src, n, (unsigned int)tiles_per_row, (unsigned int)n_tiles,
-      (const float*)low, (const float*)dx, (const int*)pixels,
+      (const float*)low, (const float*)dx, (const long long*)pixels,
       (const unsigned char*)periodic, (const long long*)plan, B,
       (const long long*)lens, (unsigned int*)words, capacity);
   return (int)cudaGetLastError();
@@ -549,7 +586,7 @@ int launch_pack(const void* src, long long B, long long n, const void* low,
 
 }  // namespace
 
-// x (B, n) float32; low, dx (B,) float32; pixels (B,) int32; periodic (B,)
+// x (B, n) float32; low, dx (B,) float32; pixels (B,) int64; periodic (B,)
 // bool; lens (B,) int64 <= n; stats (B, 6) int32, set here to (0, INT_MAX,
 // INT_MIN, INT_MAX, INT_MIN, 1) before the reduction; q (B, n) int32 or
 // null: when given, element i < lens[b] of row b gets its pixel (0 where
@@ -568,7 +605,7 @@ extern "C" int minnow_encode_float_stats(
     stats_kernel<<<(unsigned int)(B * runs_per_row), kThreads, 0,
                    (cudaStream_t)stream>>>(
         (const float*)x, n, run, (unsigned int)runs_per_row,
-        (const float*)low, (const float*)dx, (const int*)pixels,
+        (const float*)low, (const float*)dx, (const long long*)pixels,
         (const unsigned char*)periodic, (const long long*)lens, (int*)stats,
         (int*)q);
   return (int)cudaGetLastError();
@@ -582,7 +619,8 @@ extern "C" int minnow_encode_float_plan(const void* stats, const void* pixels,
                                         const void* lens, long long B,
                                         void* plan, void* stream) {
   plan_kernel<<<1, kPlanThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)stats, (const int*)pixels, (const unsigned char*)periodic,
+      (const int*)stats, (const long long*)pixels,
+      (const unsigned char*)periodic,
       (const long long*)lens, B, (long long*)plan);
   return (int)cudaGetLastError();
 }

@@ -56,22 +56,23 @@ class BlockParams(NamedTuple):
 
     low: torch.Tensor       # float32
     dx: torch.Tensor        # float32, spec.quantize_dx
-    pixels: torch.Tensor    # int32
+    pixels: torch.Tensor    # int64
     periodic: torch.Tensor  # bool
 
 
 def block_params(low, high, pixels, periodic, device) -> BlockParams:
     """Per-block configs from the numpy arrays the host functions
     take.  ``dx = f32(f32(high - low) / f32(pixels))`` is
-    ``spec.quantize_dx`` (= ``codec._dx64``).  Pixel counts must lie in
-    ``[1, 2**31)``: the kernels quantize to int32."""
+    ``spec.quantize_dx`` (= ``codec._dx64``).  Pixel counts are int64,
+    at least 1: the kernels quantize to int32 and certify a block by the
+    pixels its data holds, whatever its count."""
     low = np.atleast_1d(np.asarray(low, np.float32))
     high = np.atleast_1d(np.asarray(high, np.float32))
     pixels = np.atleast_1d(np.asarray(pixels, np.int64))
     periodic = np.atleast_1d(np.asarray(periodic, bool))
-    if pixels.size and (pixels.min() < 1 or pixels.max() > I32_MAX):
-        raise ValueError("pixel counts must lie in [1, 2**31), got %d..%d"
-                         % (pixels.min(), pixels.max()))
+    if pixels.size and pixels.min() < 1:
+        raise ValueError("pixel counts must be at least 1, got %d"
+                         % pixels.min())
     with np.errstate(all="ignore"):
         dx = (high - low).astype(np.float32) / pixels.astype(np.float32)
 
@@ -79,7 +80,7 @@ def block_params(low, high, pixels, periodic, device) -> BlockParams:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return BlockParams(put(low), put(dx.astype(np.float32)),
-                       put(pixels.astype(np.int32)), put(periodic))
+                       put(pixels), put(periodic))
 
 
 def quantize(x, low, dx):
@@ -101,9 +102,10 @@ def periodic_distance(x, x0, pixels):
 
 def bound(x, minimum, pixels):
     """Wrap into ``[minimum, minimum + pixels)`` by one +-pixels step
-    (spec.py:213)."""
+    (spec.py:213).  The upper test is ``x - minimum >= pixels``:
+    ``minimum + pixels`` would wrap in int64 at the widest counts."""
     x = x + torch.where(x < minimum, pixels, 0)
-    return x - torch.where(x >= minimum + pixels, pixels, 0)
+    return x - torch.where(x - minimum >= pixels, pixels, 0)
 
 
 # layout of the per-block stats the float encode's first pass returns
@@ -132,7 +134,7 @@ def float_block_stats(x, params: BlockParams, lens):
     q, ok = quantize(x, params.low, params.dx)
     i = torch.arange(n, device=x.device)[None, :]
     live = i < lens[:, None]
-    p = params.pixels.to(torch.int64)[:, None]
+    p = params.pixels[:, None]
     per = params.periodic[:, None]
     in_range = (q >= 0) & (q < p)
     q0, ok0 = q[:, :1], ok[:, :1] & live[:, :1]

@@ -80,7 +80,7 @@ def decode_float_plain(words, mins, params, bits: int, n: int,
     blocks into [0, pixels), dequantize with the dither."""
     q = decode_int_plain(words, mins, bits, n)
     dev = words.device
-    p = params.pixels.to(torch.int64)[:, None]
+    p = params.pixels[:, None]
     q = torch.where(params.periodic[:, None], codec.bound(q, 0, p), q)
     u = None
     if dither == "midpoint":
@@ -107,7 +107,7 @@ def decode_float_group(words, mins, params: codec.BlockParams, bits: int,
     expect(mins, "mins", torch.int64, (b,))
     expect(params.low, "low", torch.float32, (b,))
     expect(params.dx, "dx", torch.float32, (b,))
-    expect(params.pixels, "pixels", torch.int32, (b,))
+    expect(params.pixels, "pixels", torch.int64, (b,))
     expect(params.periodic, "periodic", torch.bool, (b,))
     tensors = [words, mins, *params]
     if dither == "uniform":

@@ -105,7 +105,7 @@ def _put(a, dtype, device):
 def _check_params(b, params, lens):
     expect(params.low, "low", torch.float32, (b,))
     expect(params.dx, "dx", torch.float32, (b,))
-    expect(params.pixels, "pixels", torch.int32, (b,))
+    expect(params.pixels, "pixels", torch.int64, (b,))
     expect(params.periodic, "periodic", torch.bool, (b,))
     expect(lens, "lens", torch.int64, (b,))
 
@@ -249,7 +249,7 @@ def pack_float_q_plain(q, params, lens, plan: Plan):
     """Plain version of K5 (and, from the quantized x, of K1's pack)."""
     dev = q.device
     q = q.to(torch.int64)
-    p = params.pixels.to(torch.int64)[:, None]
+    p = params.pixels[:, None]
     m = _put(plan.m, np.int64, dev)[:, None]
     q = torch.where(params.periodic[:, None], codec.bound(q, m, p), q)
     return bitpack.pack(q - _put(plan.mins, np.int64, dev)[:, None],

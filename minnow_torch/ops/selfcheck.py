@@ -19,7 +19,9 @@ which need no certificate, and the callers do not ask for one
 
 Families, as in the reference: ``encode`` (K1 at the flagship width, K3
 at 41 and 18 bits), ``decode`` (K2 in ``none`` and ``midpoint``, K4 at 18
-and 41 bits) and ``decode_uniform`` (K2's counter-hash dither).
+and 41 bits) and ``decode_uniform`` (K2's counter-hash dither).  K1 and K2
+are also held at pixel counts of 2^31 and more (:func:`wide_float_blocks`),
+where the circle's arithmetic is 64-bit.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from ..utils.device import cuda_device
 from . import bitpack, codec, decode, encode
 
 __all__ = ["SelfCheckError", "kernel_ok", "certify", "reset",
-           "spec_decode_float", "words_of", "payload_of", "FAMILIES"]
+           "spec_decode_float", "words_of", "payload_of", "FAMILIES",
+           "wide_float_blocks"]
 
 # (family, device) -> None when it passed, the divergence when not
 _VERDICTS: dict = {}
@@ -49,6 +52,8 @@ _CERTIFIED_TYPES = ("cuda",)
 # the flagship float config: L 250 at 0.001, 250,000 pixels, 18 bits
 _LOW, _HIGH, _DX, _BITS = 0.0, 250.0, 0.001, 18
 _N, _BLOCKS = 8192, 2
+# elements of each block at the wide pixel counts
+_WIDE_N = 2048
 
 
 class SelfCheckError(RuntimeError):
@@ -110,6 +115,104 @@ def payload_of(words, plan, i: int, n: int) -> bytes:
     return bitpack.words_to_bytes(words[off:off + nw], width, n)
 
 
+# the kinds of wide_float_blocks: (pixels, periodic, what the data does)
+_WIDE_KINDS = (
+    ((1 << 31) + 5, True, "straddle"),  # a window over the circle's seam
+    (1 << 33, False, "inside"),
+    (10 ** 10, True, "inside"),
+    ((1 << 31) + 5, True, "inside"),    # too spread for a window: m = 0
+    (1 << 31, False, "inside"),
+    (10 ** 10, True, "beyond"),         # pixels past int32: not certified
+)
+_WIDE_LOW, _WIDE_HIGH = 0.0, 1.0e6
+
+
+def wide_float_blocks(rng, b: int, n: int):
+    """``b`` float blocks of ``n >= 2`` elements at pixel counts of 2^31
+    and more, block ``i`` of kind ``i % 6``: 2^31 + 5 periodic with the
+    data on both sides of the circle's seam (so that the distance from
+    element 0 and the recentring offset take the count's 64 bits), 2^33
+    non-periodic, 10^10 periodic, 2^31 + 5 periodic spread over half the
+    circle and more, 2^31 non-periodic -- all with their pixels inside
+    [0, 2^31), which K1 must certify -- and 10^10 periodic with pixels
+    beyond 2^31, which it must not.  Returns ``(x, low, high, pixels,
+    periodic, certified)``."""
+    kinds = [_WIDE_KINDS[i % len(_WIDE_KINDS)] for i in range(b)]
+    pixels = np.array([k[0] for k in kinds], np.int64)
+    periodic = np.array([k[1] for k in kinds], bool)
+    what = np.array([k[2] for k in kinds])
+    low = np.full(b, _WIDE_LOW, np.float32)
+    high = np.full(b, _WIDE_HIGH, np.float32)
+    dx = np.array([spec.quantize_dx(_WIDE_LOW, _WIDE_HIGH, int(p))
+                   for p in pixels], np.float32)
+    # the values whose pixels lie 1024 below 2^31: room for the rounding
+    # of this product and of the quantizer's division
+    top = (np.float32((1 << 31) - 1024) * dx).astype(np.float64)
+    x = rng.uniform(0.0, 1.0, (b, n)) * top[:, None]
+    seam = what == "straddle"
+    near = rng.uniform(0.0, 3.0, (b, n))
+    x[seam, ::2] = near[seam, ::2]
+    x[seam, 1::2] = top[seam, None] - near[seam, 1::2]
+    beyond = what == "beyond"
+    x[beyond] = rng.uniform(0.0, 0.999 * _WIDE_HIGH, (b, n))[beyond]
+    x[beyond, 1] = 0.9 * _WIDE_HIGH
+    return x.astype(np.float32), low, high, pixels, periodic, ~beyond
+
+
+def _check_encode_wide(device) -> None:
+    """K1 at pixel counts of 2^31 and more == host spec bytes, minimums
+    and widths on the blocks whose pixels fit an int32, and no
+    certificate for the block whose pixels do not."""
+    rng = np.random.default_rng(14)
+    b = len(_WIDE_KINDS)
+    x, low, high, pixels, periodic, certified = wide_float_blocks(
+        rng, b, _WIDE_N)
+    params = codec.block_params(low, high, pixels, periodic, device)
+    lens = torch.full((b,), _WIDE_N, dtype=torch.int64, device=device)
+    words, plan = encode.encode_float_group(_put(x, device), params, lens)
+    words = words.cpu().numpy()
+    if not np.array_equal(plan.valid, certified):
+        raise AssertionError("K1 certified %s at the wide pixel counts, "
+                             "want %s" % (plan.valid, certified))
+    for i in np.nonzero(certified)[0]:
+        payload, mn, bits, _ = spec.encode_float_block(
+            x[i], low[i], high[i], int(pixels[i]), bool(periodic[i]))
+        if (int(plan.mins[i]), int(plan.bits[i])) != (mn, bits):
+            raise AssertionError(
+                "K1 stats diverge from spec at %d pixels, block %d: min %d "
+                "bits %d, want %d, %d" % (pixels[i], i, plan.mins[i],
+                                          plan.bits[i], mn, bits))
+        if payload_of(words, plan, i, _WIDE_N) != payload:
+            raise AssertionError("K1 payload bytes diverge from spec at %d "
+                                 "pixels, block %d" % (pixels[i], i))
+
+
+def _check_decode_wide(device, modes, seed: int = 0) -> None:
+    """K2 in ``modes`` == the host reader's decode of the host encoder's
+    payloads at pixel counts of 2^31 and more (a 34-bit block among them),
+    bitwise."""
+    rng = np.random.default_rng(15)
+    b = len(_WIDE_KINDS)
+    x, low, high, pixels, periodic, _ = wide_float_blocks(rng, b, _WIDE_N)
+    ids = np.arange(b) + (1 << 33)
+    k1, k2 = codec.dither_keys(ids, seed, device)
+    for i in range(b):
+        payload, mn, bits, _ = spec.encode_float_block(
+            x[i], low[i], high[i], int(pixels[i]), bool(periodic[i]))
+        row = bitpack.bytes_to_words(payload, bits, _WIDE_N)
+        params = codec.block_params(low[i], high[i], pixels[i], periodic[i],
+                                    device)
+        for mode in modes:
+            got = decode.decode_float_group(
+                _put(row.view(np.int32)[None], device),
+                _put(np.array([mn], np.int64), device), params, bits,
+                _WIDE_N, mode, k1[i:i + 1], k2[i:i + 1])[0].cpu().numpy()
+            _same(got, spec_decode_float(
+                row, mn, bits, _WIDE_N, low[i], high[i], int(pixels[i]),
+                bool(periodic[i]), mode, seed, int(ids[i])),
+                "K2 %s decode at %d pixels, block %d" % (mode, pixels[i], i))
+
+
 def _check_encode(device) -> None:
     """K1 at the flagship width and K3 at 41 bits (above 32) and 18 ==
     host spec bytes, minimums and widths."""
@@ -152,6 +255,7 @@ def _check_encode(device) -> None:
             if payload_of(words, plan, i, _N) != payload:
                 raise AssertionError("K3 payload bytes diverge from spec "
                                      "(bits=%d, block %d)" % (ibits, i))
+    _check_encode_wide(device)
 
 
 def _float_case(rng, device):
@@ -196,6 +300,7 @@ def _check_decode(device) -> None:
         _same(got[i], spec.decode_int_block(
             bitpack.words_to_bytes(wwords[i], wbits, _N), int(wmins[i]),
             wbits, _N), "K4 wide unpack at %d bits, block %d" % (wbits, i))
+    _check_decode_wide(device, ("none", "midpoint"))
 
 
 def _check_decode_uniform(device) -> None:
@@ -213,6 +318,7 @@ def _check_decode_uniform(device) -> None:
                                         pixels, True, "uniform", 1,
                                         int(ids[i])),
               "K2 uniform decode, block %d" % i)
+    _check_decode_wide(device, ("uniform",), seed=1)
 
 
 _CHECKS = {"encode": _check_encode, "decode": _check_decode,

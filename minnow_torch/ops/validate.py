@@ -32,7 +32,8 @@ import torch
 from ..core import spec
 from ..utils.device import cuda_device
 from . import bitpack, codec, decode, encode
-from .selfcheck import payload_of, spec_decode_float, words_of
+from .selfcheck import (payload_of, spec_decode_float, wide_float_blocks,
+                        words_of)
 
 __all__ = ["validate_quantize", "validate_dequantize", "validate_pack",
            "validate_kernels", "validate_backend"]
@@ -179,6 +180,57 @@ def _payloads(words, plan, lens):
     return [payload_of(words, plan, i, int(n)) for i, n in enumerate(lens)]
 
 
+def _validate_wide_pixels(rng, device, n: int) -> None:
+    """K1, K5 and K2 == host spec at pixel counts of 2^31 and more
+    (``selfcheck.wide_float_blocks``: periodic and non-periodic, a window
+    over the circle's seam, ragged blocks); the block whose pixels pass
+    an int32 must come back uncertified, and K2 decodes its 34-bit host
+    payload like the others."""
+    b = 12
+    x, low, high, pixels, periodic, certified = wide_float_blocks(rng, b, n)
+    lens = np.full(b, n, np.int64)
+    lens[1::2] = n - 5
+    params = codec.block_params(low, high, pixels, periodic, device)
+    xt, lt = _put(x, device), _put(lens, device)
+    words, plan = encode.encode_float_group(xt, params, lt)
+    words_q, plan_q = encode.encode_float_group(xt, params, lt, reuse_q=True)
+    if not np.array_equal(plan.valid, certified) \
+            or not np.array_equal(plan_q.valid, certified):
+        raise AssertionError("K1 certified %s at the wide pixel counts, "
+                             "want %s" % (plan.valid, certified))
+    got = _payloads(words, plan, lens)
+    if got != _payloads(words_q, plan_q, lens) \
+            or not np.array_equal(plan.mins, plan_q.mins):
+        raise AssertionError("K5 (reuse_q) differs from K1 at the wide "
+                             "pixel counts")
+    ids = np.arange(b) + (1 << 35)
+    keys = codec.dither_keys(ids, 7, device)
+    for i in range(b):
+        m = int(lens[i])
+        payload, mn, bits, _ = spec.encode_float_block(
+            x[i, :m], low[i], high[i], int(pixels[i]),
+            periodic=bool(periodic[i]))
+        if certified[i] and (got[i], int(plan.mins[i]),
+                             int(plan.bits[i])) != (payload, mn, bits):
+            raise AssertionError("K1 diverges from spec at %d pixels, "
+                                 "block %d" % (pixels[i], i))
+        row = bitpack.bytes_to_words(payload, bits, m)
+        args = (_put(row.view(np.int32)[None], device),
+                _put(np.array([mn], np.int64), device),
+                codec.BlockParams(*(v[i:i + 1] for v in params)), bits, m)
+        for mode in codec.DITHER_MODES:
+            dec = decode.decode_float_group(
+                *args, mode, keys[0][i:i + 1], keys[1][i:i + 1])
+            want = spec_decode_float(row, mn, bits, m, low[i], high[i],
+                                     int(pixels[i]), bool(periodic[i]),
+                                     mode, 7, int(ids[i]))
+            if not np.array_equal(dec[0].cpu().numpy().view(np.int32),
+                                  want.view(np.int32)):
+                raise AssertionError("K2 %s decode diverges from spec at "
+                                     "%d pixels, block %d"
+                                     % (mode, pixels[i], i))
+
+
 def validate_kernels(device, n: int = 2051, seed: int = 5) -> dict:
     """Every kernel == host spec, byte for byte, on the actual device, at
     every width: K1 and K5 (float encode, widths 1..32; K5 through
@@ -186,7 +238,8 @@ def validate_kernels(device, n: int = 2051, seed: int = 5) -> dict:
     ``midpoint`` and ``uniform``), K3 (int delta pack, widths 1..64, IDs
     above 2^53 and minimums down to -2^63) and K4 (int unpack, widths
     0..64).  Ragged, empty and non-periodic blocks ride in every batch;
-    a block with a NaN must come back uncertified.  Returns the widths
+    a block with a NaN must come back uncertified.  K1, K5 and K2 are
+    also held at pixel counts of 2^31 and more.  Returns the widths
     each kernel was held at."""
     rng = np.random.default_rng(seed)
     seen = {"K1": set(), "K2": set(), "K3": set(), "K4": set(), "K5": set()}
@@ -252,6 +305,8 @@ def validate_kernels(device, n: int = 2051, seed: int = 5) -> dict:
     if plan.valid[0] or not plan.valid[1:].all():
         raise AssertionError("K1 certified a block with a NaN, or refused "
                              "its neighbours: %s" % plan.valid)
+
+    _validate_wide_pixels(rng, device, n)
 
     rows, mins = [], []
     for bits in range(65):

@@ -12,7 +12,10 @@ periodic block with pixels outside ``[0, pixels)``) are encoded by the
 normative host encoder ``spec.encode_float_block``, as the reference's
 pipeline does (``pipeline.py:474-487``); with ``clamp_q`` so are the
 valid blocks whose largest pixel reaches ``pixels``, the only pixels
-``clamp_q`` changes.
+``clamp_q`` changes.  A block goes there for the pixels its data holds,
+never for its pixel count: counts are 64-bit, and a column of 2^31
+pixels or more is encoded on the device like any other as long as its
+pixels fit an int32.  ``HOST_BLOCKS`` counts the blocks sent there.
 
 Minnow blocks are data-parallel (each carries its own min and width), so
 with several devices the block axis of a batch is split into contiguous
@@ -37,10 +40,15 @@ import torch
 from ..core import spec
 from ..formats.device_common import group_decode, group_decode_ints
 from ..ops import bitpack, codec, encode, selfcheck
+from ..ops._launch import COUNT_LOCK
 from ..utils.device import cuda_device
 from . import mesh
 
 __all__ = ["EncodedBlocks", "BlockEncoder"]
+
+# float blocks that encode_float_blocks sent to the host encoder (read it
+# as pipeline.HOST_BLOCKS)
+HOST_BLOCKS = 0
 
 
 @dataclass
@@ -226,6 +234,9 @@ class BlockEncoder:
             # K1 certifies periodic pixels in [0, pixels), which clamp_q
             # leaves alone; a non-periodic block's largest is mins + maxd
             host |= ~periodic & (mins + maxd >= pixels)
+        global HOST_BLOCKS
+        with COUNT_LOCK:
+            HOST_BLOCKS += int(host.sum())
         for i in np.nonzero(host)[0]:
             payloads[i], mins[i], bits[i], _ = spec.encode_float_block(
                 x[i, :lens[i]], low[i], high[i], int(pixels[i]),

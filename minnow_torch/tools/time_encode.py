@@ -1,22 +1,29 @@
-"""Times of the float encode (K1, K5) on one CUDA card, for one checkout
-or for two in turns.
+"""Times of the float encode (K1, K5) and the float decode (K2) on one
+CUDA card, for one checkout or for two in turns.
 
     python3 minnow_torch/tools/time_encode.py [--reps N] [--root DIR]
     python3 minnow_torch/tools/time_encode.py --compare OTHER_CHECKOUT
+                                              [--pairs N] [--reps N]
 
-With ``--compare`` the script runs itself four times as a subprocess, on
-the other checkout, this one, this one and the other again (so that a
-drift of the card shows), each building its own kernels, and prints the
-two checkouts' times side by side: a before and after inside one run, on
-one card.  It uses only what both generations of ``minnow_torch.ops.encode``
+With ``--compare`` the script runs itself as a subprocess on the other
+checkout and on this one in turns, ``--pairs`` times over (3 unless told
+otherwise), each run building its own kernels, and prints the two
+checkouts' times side by side, then each checkout's median and range: a
+before and after inside one run, on one card.  One process to the next the
+same build's times move by several per cent, so one pair decides nothing.
+Every run also counts the SASS instructions of each function of the
+library it built (``cuobjdump -sass`` from beside nvcc, under the
+function's mangled name), which do not move with the card.  It uses only
+what both generations of ``minnow_torch.ops.encode``
 have (``float_stats``, ``plan_float``, ``pack_float``, ``pack_float_q``,
-``encode_float_group``), and K1's plan launch where there is one.
+``encode_float_group``, ``decode.decode_float_group``), and K1's plan
+launch where there is one.
 
 Shapes, all CUDA events, median of N after warm-up:
 
 * flagship: 4096 blocks x 2^17 elements, periodic, 250,000 pixels (18
   bits): each launch alone, the whole call, the ``reuse_q`` call, the host
-  plan on the host clock;
+  plan on the host clock, and K2's ``uniform`` decode of K1's words;
 * text_to_minh: the 8 float columns of one row-block of 853,007 halos
   (two log columns, three periodic positions, three velocities);
 * minh_to_bnd: one position column of 512 ragged cells of 3,619..4,026;
@@ -35,6 +42,8 @@ import argparse
 import inspect
 import json
 import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -76,10 +85,29 @@ def bound_ms(x, words):
     return (x.numel() + words.numel()) * 4 / 3.35e12 * 1e3
 
 
+def sass_counts(lib_path, nvcc):
+    """Mangled function name -> SASS instructions in the library at
+    ``lib_path``, by the ``cuobjdump`` beside ``nvcc``; a function whose
+    arguments are the same in two checkouts has the same name in both."""
+    text = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", lib_path],
+        check=True, capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            # a file-local function's name holds a hash of its build
+            name = re.sub(r"__N__[0-9a-f]{8}_", "__N__", fn.group(1))
+            counts[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+            counts[name] += 1
+    return counts
+
+
 def measure(reps):
     import torch
 
-    from minnow_torch.ops import codec, encode
+    from minnow_torch.ops import _build, codec, decode, encode
     from minnow_torch.utils.device import card_info, cuda_device, time_ms
 
     dev = cuda_device()
@@ -135,7 +163,19 @@ def measure(reps):
     words = call(x, params, lens, capacity)[0]
     t["bound"] = bound_ms(x, words)
     out["flagship words checksum"] = int(words.to(torch.int64).sum())
-    del x, q, words
+    del x, q
+    w2d = words[:capacity].view(b, capacity // b)
+    mins = torch.from_numpy(plan.mins).to(dev)
+    k1, k2 = codec.dither_keys(np.arange(b), 0, dev)
+
+    def dec():
+        return decode.decode_float_group(w2d, mins, params, 18, n, "uniform",
+                                         k1, k2)
+
+    t["K2 uniform decode"] = time_ms(dec, reps)
+    out["flagship decode checksum"] = int(
+        dec().view(torch.int32).to(torch.int64).sum())
+    del words, w2d
     torch.cuda.empty_cache()
     out["flagship (4096, 131072)"] = t
 
@@ -155,21 +195,23 @@ def measure(reps):
             "bound": bound_ms(xt, words),
             "words checksum": int(words.to(torch.int64).sum()),
             "widths": sorted({int(v) for v in plan.bits})}
+    out["SASS instructions"] = sass_counts(_build.load()._name,
+                                           _build._nvcc())
     return out
 
 
-def compare(other, reps):
+def compare(other, reps, pairs):
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     runs = []
-    for label, root in (("other", other), ("this", here), ("this", here),
-                        ("other", other)):
+    for label, root in (("other", other), ("this", here)) * pairs:
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--root", root,
              "--reps", str(reps)], check=True, capture_output=True,
             text=True, timeout=900)
         runs.append((label, json.loads(res.stdout.strip().splitlines()[-1])))
-    print("ms; columns: other, this, this, other (in the order run)")
+    print("ms; columns: %s (in the order run)"
+          % ", ".join(label for label, _ in runs))
     for shape, first in runs[0][1].items():
         if not isinstance(first, dict):
             if len({json.dumps(r[shape]) for _, r in runs}) != 1:
@@ -184,6 +226,16 @@ def compare(other, reps):
             if isinstance(vals[0] if vals[0] is not None else vals[1], float):
                 print("%s | %s | %s" % (shape, k, " | ".join(
                     "-" if v is None else "%.4f" % v for v in vals)))
+                for label in ("other", "this"):
+                    own = [v for (lb, _), v in zip(runs, vals)
+                           if lb == label and v is not None]
+                    if own:
+                        print("%s | %s | %s: median %.4f (%.4f to %.4f)"
+                              % (shape, k, label, statistics.median(own),
+                                 min(own), max(own)))
+            elif shape == "SASS instructions":
+                print("%s | %s | %s" % (shape, k, " | ".join(
+                    "-" if v is None else "%d" % v for v in vals)))
             elif len({json.dumps(v) for v in vals}) != 1:
                 raise AssertionError("%s, %s differs between the runs: %s"
                                      % (shape, k, vals))
@@ -199,9 +251,11 @@ def main(argv=None):
                     help="the checkout whose minnow_torch is timed")
     ap.add_argument("--compare", default=None,
                     help="another checkout to time in turns with this one")
+    ap.add_argument("--pairs", type=int, default=3,
+                    help="with --compare: other, this, that many times")
     args = ap.parse_args(argv)
     if args.compare:
-        compare(os.path.abspath(args.compare), args.reps)
+        compare(os.path.abspath(args.compare), args.reps, args.pairs)
         return
     root = args.root or os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))

@@ -104,9 +104,18 @@ def test_block_params_dx_is_spec_and_jax_dx():
     jdx = np.asarray(jax_codec._dx64(low, high, pixels)).astype(np.float32)
     np.testing.assert_array_equal(p.dx.numpy().view(np.int32),
                                   jdx.view(np.int32))
-    assert p.pixels.dtype == torch.int32 and p.periodic.dtype == torch.bool
+    assert p.pixels.dtype == torch.int64 and p.periodic.dtype == torch.bool
+    # any count from 1 up is taken: the kernels judge a block by its data
+    wide = np.array([1 << 31, (1 << 31) + 5, 1 << 33, 10 ** 10,
+                     (1 << 53) + 1, (1 << 63) - 1], np.int64)
+    pw = codec.block_params(low[:6], high[:6], wide, np.ones(6, bool), "cpu")
+    np.testing.assert_array_equal(pw.pixels.numpy(), wide)
+    want = np.array([spec.quantize_dx(lo, hi, int(px))
+                     for lo, hi, px in zip(low, high, wide)], np.float32)
+    np.testing.assert_array_equal(pw.dx.numpy().view(np.int32),
+                                  want.view(np.int32))
     with pytest.raises(ValueError):
-        codec.block_params([0.0], [1.0], [1 << 31], [True], "cpu")
+        codec.block_params([0.0], [1.0], [0], [True], "cpu")
 
 
 def test_dither_keys_and_hash_match_jax():

@@ -22,7 +22,8 @@ from minnow_torch.formats import minh, minh_device
 from minnow_torch.ops import bitpack, codec, decode, encode, selfcheck
 from minnow_torch.ops import validate
 from minnow_torch.parallel.pipeline import BlockEncoder
-from minnow_torch.tools import kernel_fuzz_soak, multiprocess_gather_check
+from minnow_torch.tools import (dryrun, kernel_fuzz_soak,
+                                multiprocess_gather_check)
 from test_torch_minh_to_bnd import BND, CELLS, write_catalog
 
 pytestmark = pytest.mark.cuda
@@ -149,6 +150,54 @@ def test_float_encode_refuses_a_capacity_too_small(dev):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("n", [4097, 70001])
+def test_wide_pixel_counts_match_plain_and_spec(dev, n):
+    """K1, K5 and K2 at pixel counts of 2^31 and more (periodic with a
+    window over the seam, non-periodic, 10^10 with pixels inside and
+    beyond int32): the plain versions, ``spec`` and the host reader, at
+    lengths other than ``chip_smoke.py``'s own sweep (200 and 2^17)."""
+    before = encode.K1_LAUNCHES, encode.K5_LAUNCHES, decode.K2_LAUNCHES
+    sent = chip_smoke.check_wide_batch(dev, np.random.default_rng(n), 12, n)
+    assert sent == 2
+    assert encode.K1_LAUNCHES > before[0] and encode.K5_LAUNCHES > before[1]
+    assert decode.K2_LAUNCHES > before[2]
+
+
+@pytest.mark.parametrize("n", [4097])
+def test_pixel_counts_at_the_top_of_the_range(dev, n):
+    """K1, K5 and K2 at 2^62 + 3 and 2^63 - 1 pixels, where the end of a
+    periodic window passes 2^63: the plain versions, ``spec`` and the host
+    reader; every block certified."""
+    rng = np.random.default_rng(n)
+    sent = chip_smoke.check_wide_batch(
+        dev, rng, 12, n, chip_smoke.top_of_range_blocks(rng, 12, n))
+    assert sent == 0
+
+
+def test_wide_pixel_counts_in_selfcheck_and_validate(dev):
+    selfcheck._check_encode_wide(dev)
+    selfcheck._check_decode_wide(dev, tuple(codec.DITHER_MODES), seed=3)
+    validate._validate_wide_pixels(np.random.default_rng(4), dev, 2051)
+    torch.cuda.synchronize()
+
+
+def test_wide_column_through_the_converter_on_card(dev, tmp_path):
+    """A catalog with 10^10-pixel columns: the --device file, the reads
+    on the card and inspect_minh --device against host mode."""
+    launches = chip_smoke.wide_column_path(dev, str(tmp_path / "wide"), 3000)
+    assert launches["K1"] >= 3 and launches["K2"] >= 6
+
+
+@pytest.mark.parametrize("shares", [3])
+def test_dry_runs_on_the_card(dev, shares):
+    """Three shares on the one card (``chip_smoke.py`` drives one and
+    two)."""
+    before = encode.K1_LAUNCHES, decode.K2_LAUNCHES
+    out = dryrun.dryrun([dev] * shares)
+    assert list(out) == list(dryrun.STEPS)
+    assert encode.K1_LAUNCHES > before[0] and decode.K2_LAUNCHES > before[1]
+
+
 @pytest.mark.parametrize("mode", list(codec.DITHER_MODES))
 def test_k2_matches_plain_at_every_width(dev, mode):
     rng = np.random.default_rng(3)
@@ -162,7 +211,7 @@ def test_k2_matches_plain_at_every_width(dev, mode):
         mins = torch.from_numpy(rng.integers(-1 << 30, 1 << 30, b)).to(dev)
         params = codec.block_params(rng.uniform(-5, 0, b),
                                     rng.uniform(10, 50, b),
-                                    rng.integers(1, 1 << 31, b),
+                                    rng.integers(1, 1 << 34, b),
                                     np.array([1, 0, 1], bool), dev)
         _same(decode.decode_float_group(words, mins, params, bits, n, mode,
                                         k1, k2),
