@@ -18,10 +18,13 @@ Phases, each of which raises at its first failure:
    the host's ``plan_float``; K2 float decode at widths 0..64 in the
    three dither modes, K3 int pack at widths 1..64 with IDs above 2^53,
    K4 int unpack at widths 0..64 with minimums at -2^63 and 2^63 - 1 and
-   deltas of 2^width - 1; the TPU's
-   per-tile kernels on their counterparts: B9 ``decode_float_group`` in
-   none and midpoint, B10 ``decode_int_group`` with zero minimums and B11
-   ``pack_batch`` at widths 1..32 (also against ``spec.pack_bits``).
+   deltas of 2^width - 1; K2 and K4 also through their ragged entry on
+   one column of widths 0..64 at start bytes 0..3 (mod 4), lengths 1, 31,
+   33, 4,099 and 2^17 - 1, minimums -2^63 and 2^63 - 1, pixel counts
+   2^31 + 5 and 10^10 (``ragged_sweep``); the TPU's per-tile kernels on
+   their counterparts: B9 ``decode_float_group`` in none and midpoint,
+   B10 ``decode_int_group`` with zero minimums and B11 ``pack_batch`` at
+   widths 1..32 (also against ``spec.pack_bits``).
    Then each kernel at the flagship block shape (4096 blocks x 2^17
    elements, 18 bits; K4 also at 54 bits), timed (CUDA events, median of
    7 after warm-up) beside its plain version; K1's three launches, the
@@ -41,7 +44,8 @@ Phases, each of which raises at its first failure:
    ``text_to_minh --device``, byte-compared with the file of the same
    converter in host mode, every float column read back on the card
    with ``read_floats`` in the none, midpoint and uniform modes and the
-   ``int`` columns with ``read_ints``, bitwise equal to the host reader.
+   ``int`` columns with ``read_ints``, bitwise equal to the host reader,
+   each read one launch a column.
    K1 to K4 must have been launched by this phase.  Before it, K1 to K4
    are checked against their plain versions, bitwise, and timed at the
    shapes this phase gives them (one block of each column).  Then a
@@ -62,12 +66,15 @@ Phases, each of which raises at its first failure:
    and ``read_ints``, then ``minh_to_bnd --device`` at 8 cells and
    boundary 5.0, byte-compared with ``minh_to_bnd`` in host mode
    (``uniform`` dither); every column of the boundary file read back on
-   the card, bitwise equal to the host reader, and ``inspect_minh
-   --device`` printing what ``inspect_minh`` prints in host mode.
+   the card, bitwise equal to the host reader, one K2 launch a Float
+   column and one K4 launch an Int column, and ``inspect_minh --device``
+   printing what ``inspect_minh`` prints in host mode.
    K1 to K4 must have been launched by this phase.  Before it, K1 to K4
    are checked and timed as in 4 at this phase's shapes: K1 and K3 on
-   one column of 512 ragged cells, K2 and K4 on a bucket of cells of one
-   length;
+   one column of 512 ragged cells, K2 and K4 on that column whole, as
+   the read gives it them; after its count, the file's x and id columns
+   as the read stages them, through the ragged entry, timed beside their
+   bound;
 6. the snapshot path: an LGadget-2 fileset of 256^3 particles (L 250,
    lattice positions with Gaussian displacements and collapsed clusters;
    Gaussian velocities) through ``convert_snapshot to_minp --device`` at
@@ -75,11 +82,13 @@ Phases, each of which raises at its first failure:
    blocks of 4,096 each), every file byte-compared with the host mode's;
    every file read back on the card with
    ``read_vectors`` in ``uniform``, one x and one v file also in ``none``
-   and ``midpoint``, bitwise equal to the host reader, and the positions
-   and velocities of one file cell within dx and dv of the source.  K1
-   and K2 must have been launched by this phase.  Before it, K1 and K2
-   are checked and timed at its shapes (one axis of a file: 512 blocks
-   of 4,096; a width bucket of them);
+   and ``midpoint``, bitwise equal to the host reader, one K2 launch a
+   file, and the positions and velocities of one file cell within dx and
+   dv of the source.  K1 and K2 must have been launched by this phase.
+   Before it, K1 and K2 are checked and timed at its shapes (one axis of
+   a file: 512 blocks of 4,096, K2 on the whole axis); after its count,
+   an axis and the whole of one file as ``read_vectors`` stages them,
+   through the ragged entry, timed beside their bound;
 7. the multi-process path: ``minnow_torch.tools.multiprocess_gather_check``
    with 4 worker processes on the one card (gloo between them) on a
    catalog of 999,888 rows in 11 ragged row-blocks (``int`` IDs from
@@ -90,12 +99,12 @@ Phases, each of which raises at its first failure:
    write, and every rank decodes its row-blocks back with
    ``decode_int_blocks`` / ``decode_float_blocks``, bitwise equal to the
    host reader.  Each rank certifies its kernels, sets its launch counts
-   to zero, drives the path and reports the counts: K1 to K4 must be
-   non-zero on every rank.  A worker that exits non-zero or outlives its
-   limit ends the script.  Before the workers, K1 to K4 are checked and
-   timed as in 4 at the shapes the first and the last rank give them: K1
-   and K3 on a rank's ragged batch, K2 and K4 on one block a call.  Then,
-   in this process with the counts at zero:
+   to zero, drives the path and reports the counts, its read-back's
+   apart: K1 to K4 must be non-zero on every rank.  A worker that exits
+   non-zero or outlives its limit ends the script.  Before the workers,
+   K1 to K4 are checked and timed as in 4 at the shapes the first and the
+   last rank give them: K1 and K3 on a rank's ragged batch, K2 and K4 on
+   one block a call.  Then, in this process with the counts at zero:
    ``BlockEncoder([card, card])`` (a stream per share) on the x and id
    columns of phase 5's 512 ragged cells must equal ``BlockEncoder(card)``
    byte for byte and its decode methods the values, and ``text_to_minh
@@ -159,6 +168,7 @@ from minnow_torch.cli import convert_snapshot, inspect_minh  # noqa: E402
 from minnow_torch.cli import minh_to_bnd, text_to_minh  # noqa: E402
 from minnow_torch.cli import verify_minnow  # noqa: E402
 from minnow_torch.core import spec  # noqa: E402
+from minnow_torch.formats import device_common  # noqa: E402
 from minnow_torch.formats import minh, minh_device, minp  # noqa: E402
 from minnow_torch.formats import minp_device  # noqa: E402
 from minnow_torch.ingest import lgadget2, snapshot  # noqa: E402
@@ -191,6 +201,8 @@ WIDE_SHAPES = ((12, 200), (64, 1 << 17))
 WIDE_ROWS = 200_000
 # phase 9: the time limit of the cuda tests' process
 TESTS_LIMIT = 420
+# launches of one CUDA graph that times a ragged decode alone
+GRAPH_LAUNCHES = 20
 
 
 def log(*args):
@@ -334,6 +346,63 @@ def plan_eq(a, b):
     return all(np.array_equal(u, v) for u, v in zip(a, b))
 
 
+def ragged_sweep(rng, long=(1 << 17) - 1):
+    """One ragged column of each kind for K2 and K4, over random bytes:
+    widths 0..64 in a shuffled order, blocks back to back after gaps of 0
+    to 3 bytes so that their start bytes run through 0, 1, 2, 3 (mod 4),
+    lengths 1, 31, 33, 4,099 and ``long`` in turn (so a block of length 1
+    follows each one of ``long``), minimums -2^63 and 2^63 - 1 among
+    random ones.  The float column holds the same blocks at pixel counts
+    2^31 + 5 and 10^10 (periodic), 250,000 (periodic) and 200,000 (not)
+    in turn.  Returns ``(span, [int Blocks, float Blocks])``."""
+    widths = rng.permutation(65)
+    b = len(widths)
+    lens = np.array([(1, 31, 33, 4099, long)[k % 5] for k in range(b)],
+                    np.int64)
+    nbytes = (widths * lens + 7) // 8
+    start, pos = np.empty(b, np.int64), 0
+    for k in range(b):
+        start[k] = pos + (k - pos) % 4
+        pos = int(start[k] + nbytes[k])
+    span = rng.integers(0, 256, pos + 5, dtype=np.uint8)
+    mins = rng.integers(-(1 << 62), 1 << 62, b)
+    mins[:2] = (-(1 << 63), (1 << 63) - 1)
+    ids = np.arange(b, dtype=np.int64) * 7919 + (1 << 33)
+    kinds = (((1 << 31) + 5, True), (10 ** 10, True), (250000, True),
+             (200000, False))
+    low = rng.uniform(-10, 0, b).astype(np.float32)
+    config = (low, (low + rng.uniform(100, 300, b)).astype(np.float32),
+              np.array([kinds[k % 4][0] for k in range(b)], np.int64),
+              np.array([kinds[k % 4][1] for k in range(b)], bool))
+    cols = [device_common.Blocks(start, widths.astype(np.int64), lens, mins,
+                                 c, ids) for c in (None, config)]
+    return span, cols
+
+
+def check_ragged(dev, rng, kind):
+    """K2 (``kind`` "K2", in the three modes) or K4 ("K4") through the
+    ragged entry on :func:`ragged_sweep`'s column, staged as a read stages
+    a file, against its plain version on the same tensors, bitwise.
+    Returns the largest error."""
+    span, cols = ragged_sweep(rng)
+    err = 0.0
+    for mode in codec.DITHER_MODES if kind == "K2" else ("none",):
+        src, staged = device_common.stage_columns(span, cols, dev, mode,
+                                                  seed=3)
+        if kind == "K4":
+            t = staged[0].table
+            same_ints(decode.decode_int_ragged(src, t),
+                      decode.decode_int_ragged_plain(src, t),
+                      "K4 ragged sweep")
+            continue
+        args = (src, *staged[1])
+        err = max(err, float_err(decode.decode_float_ragged(
+            args[0], args[1], args[2], mode, *args[3:]),
+            decode.decode_float_ragged_plain(args[0], args[1], args[2], mode,
+                                             *args[3:])))
+    return err
+
+
 def check_k2(dev, rng):
     err = 0.0
     b, n = 3, 1001
@@ -355,8 +424,12 @@ def check_k2(dev, rng):
             ref = decode.decode_float_plain(wt, mt, params, bits, n, mode,
                                             k1, k2)
             err = max(err, float_err(got, ref))
-    log("K2 sweep: widths 0..64 x none/midpoint/uniform at n=%d, bitwise "
-        "equal to the plain version" % n)
+    err = max(err, check_ragged(dev, rng, "K2"))
+    log("K2 sweep: widths 0..64 x none/midpoint/uniform at n=%d, and "
+        "through the ragged entry one column of widths 0..64 at start bytes "
+        "0..3 (mod 4), lengths 1, 31, 33, 4099 and 2^17 - 1, pixel counts "
+        "2^31 + 5 and 10^10 among them: bitwise equal to the plain version"
+        % n)
     return err
 
 
@@ -412,8 +485,11 @@ def check_k4(dev, rng):
         if bits == 64 and int(got[0, 0]) != (1 << 63) - 1:
             raise AssertionError("K4: -2^63 + (2^64 - 1) gave %d"
                                  % int(got[0, 0]))
-    log("K4 sweep: widths 0..64 at n=%d, minimums -2^63 and 2^63 - 1, "
-        "bitwise equal to the plain version" % n)
+    check_ragged(dev, rng, "K4")
+    log("K4 sweep: widths 0..64 at n=%d, minimums -2^63 and 2^63 - 1, and "
+        "through the ragged entry one column of widths 0..64 at start bytes "
+        "0..3 (mod 4), lengths 1, 31, 33, 4099 and 2^17 - 1: bitwise equal "
+        "to the plain version" % n)
     return 0
 
 
@@ -1095,9 +1171,11 @@ def main_path(dev):
     for mode in ("none", "midpoint", "uniform"):
         r = minh.open(dev_file, dither=mode, seed=7)
         try:
+            k2 = decode.K2_LAUNCHES
             t0 = time.perf_counter()
             got = minh_device.read_floats(r, names, dev)
             t_read = time.perf_counter() - t0
+            k2 = decode.K2_LAUNCHES - k2
             t0 = time.perf_counter()
             want = r.floats(names)
             t_host_read = time.perf_counter() - t0
@@ -1110,9 +1188,12 @@ def main_path(dev):
                     got[name].view(np.int32), want[name].view(np.int32)):
                 raise AssertionError("read_floats(%s) differs from the host "
                                      "reader in mode %s" % (name, mode))
-        log("read_floats %s: %d columns x %d rows on the card in %.3f s, "
-            "host reader %.3f s; bitwise equal"
-            % (mode, len(names), kept, t_read, t_host_read))
+        if k2 != len(names):
+            raise AssertionError("read_floats of %d columns launched K2 %d "
+                                 "times" % (len(names), k2))
+        log("read_floats %s: %d columns x %d rows on the card in %.3f s "
+            "(%d K2 launches, one a column), host reader %.3f s; bitwise "
+            "equal" % (mode, len(names), kept, t_read, k2, t_host_read))
 
     if kept != keep.sum() or not np.array_equal(pid, source["pid"][keep]):
         raise AssertionError("mass cut or pid column wrong")
@@ -1311,9 +1392,11 @@ def check_read_ints(fname, dev):
     r = minh.open(fname)
     try:
         names = [n for n, c in zip(r.names, r.columns) if c.type == minh.Int]
+        k4 = decode.K4_LAUNCHES
         t0 = time.perf_counter()
         got = minh_device.read_ints(r, names, dev)
         t_read = time.perf_counter() - t0
+        k4 = decode.K4_LAUNCHES - k4
         t0 = time.perf_counter()
         want = r.ints(names)
         t_host = time.perf_counter() - t0
@@ -1324,9 +1407,12 @@ def check_read_ints(fname, dev):
         if got[n].dtype != np.int64 or not np.array_equal(got[n], want[n]):
             raise AssertionError("read_ints(%s) differs from the host reader"
                                  % n)
-    log("read_ints %s: %d rows on the card in %.3f s, host reader %.3f s; "
-        "bitwise equal; widths %s" % (names, len(want[names[0]]), t_read,
-                                      t_host, widths))
+    if k4 != len(names):
+        raise AssertionError("read_ints of %d columns launched K4 %d times"
+                             % (len(names), k4))
+    log("read_ints %s: %d rows on the card in %.3f s (%d K4 launches, one "
+        "a column), host reader %.3f s; bitwise equal; widths %s"
+        % (names, len(want[names[0]]), t_read, k4, t_host, widths))
     return {w for ws in widths.values() for w in ws}
 
 
@@ -1361,12 +1447,14 @@ def held_to_plain(seen):
     entry also runs the plain version on the same tensors and raises
     unless the two are bitwise equal: ``encode.start_float_group`` (K1:
     its stats rows, its plan and its words), ``encode.encode_int_group``
-    (K3), ``decode.decode_float_group`` (K2) and ``decode.decode_int_group``
-    (K4).  ``seen`` gathers each call's shape by kernel.  It holds the
-    kernels at whatever shapes a path gives them: a path runs under it
-    once before its counted run, so none of these launches is counted."""
+    (K3), ``decode.decode_float_ragged`` (K2) and
+    ``decode.decode_int_ragged`` (K4), the one entry of each decode kernel
+    (``decode_*_group`` build a table and call them).  ``seen`` gathers
+    each call's shape by kernel.  It holds the kernels at whatever shapes
+    a path gives them: a path runs under it once before its counted run,
+    so none of these launches is counted."""
     real = (encode.start_float_group, encode.encode_int_group,
-            decode.decode_float_group, decode.decode_int_group)
+            decode.decode_float_ragged, decode.decode_int_ragged)
 
     def start_float_group(x, params, lens, reuse_q=False, capacity=None):
         pending = real[0](x, params, lens, reuse_q, capacity)
@@ -1399,67 +1487,140 @@ def held_to_plain(seen):
         seen.setdefault("K3", []).append(tuple(x.shape))
         return words, plan
 
-    def decode_float_group(words, mins, params, bits, n, dither, k1=None,
-                           k2=None):
-        args = (words, mins, params, bits, n, dither, k1, k2)
+    def shape(table):
+        """(blocks, elements, narrowest bits, widest bits) of a table."""
+        bits = table.bits.tolist() or [0]
+        return (len(table.lens), table.total, min(bits), max(bits))
+
+    def decode_float_ragged(src, table, params, dither, k1=None, k2=None):
+        args = (src, table, params, dither, k1, k2)
         got = real[2](*args)
-        float_err(got, decode.decode_float_plain(*args))
-        seen.setdefault("K2", []).append((words.shape[0], n, bits))
+        float_err(got, decode.decode_float_ragged_plain(*args))
+        seen.setdefault("K2", []).append(shape(table))
         return got
 
-    def decode_int_group(words, mins, bits, n):
-        got = real[3](words, mins, bits, n)
-        same_ints(got, decode.decode_int_plain(words, mins, bits, n),
-                  "K4 at (%d, %d), %d bits" % (words.shape[0], n, bits))
-        seen.setdefault("K4", []).append((words.shape[0], n, bits))
+    def decode_int_ragged(src, table):
+        got = real[3](src, table)
+        same_ints(got, decode.decode_int_ragged_plain(src, table),
+                  "K4 at %s" % (shape(table),))
+        seen.setdefault("K4", []).append(shape(table))
         return got
 
     encode.start_float_group = start_float_group
     encode.encode_int_group = encode_int_group
-    decode.decode_float_group = decode_float_group
-    decode.decode_int_group = decode_int_group
+    decode.decode_float_ragged = decode_float_ragged
+    decode.decode_int_ragged = decode_int_ragged
     try:
         yield seen
     finally:
         (encode.start_float_group, encode.encode_int_group,
-         decode.decode_float_group, decode.decode_int_group) = real
+         decode.decode_float_ragged, decode.decode_int_ragged) = real
 
 
 def log_held(what, seen):
     """One line for a path that ran under :func:`held_to_plain`."""
     log("%s, every kernel call held against its plain version on the same "
         "tensors, bitwise equal: %s (K1, K3: (blocks, elements); K2, K4: "
-        "(blocks, elements, bits))"
+        "(blocks, elements, narrowest and widest bits))"
         % (what, "; ".join("%s %d calls at %s" % (k, len(v), sorted(set(v)))
                            for k, v in sorted(seen.items()))))
 
 
-def bucket(words, plan, n, k):
-    """The words of the first ``k`` blocks of a flat encode buffer, all of
-    length ``n`` and one width, as a (k, W) bucket of the bucketed read."""
-    bits = {int(b) for b in plan.bits[:k]}
-    if len(bits) != 1:
-        raise AssertionError("bucket blocks at widths %s" % sorted(bits))
-    nw = bitpack.words_per_block(bits.pop(), n)
-    return torch.stack([words[int(o):int(o) + nw] for o in plan.offsets[:k]])
+def file_column(words, plan, lens, config=None, ids=None):
+    """The blocks of an encode as a file holds them: their payload bytes
+    back to back (``pipeline._payloads``) and their
+    ``device_common.Blocks`` (a float column with ``config``, keyed on
+    ``ids``).  Returns ``(span, Blocks)``."""
+    lens = np.asarray(lens, np.int64)
+    payloads = pipeline._payloads(words.cpu().numpy(), plan.offsets,
+                                  plan.bits, lens)
+    ends = np.cumsum([len(p) for p in payloads], dtype=np.int64)
+    start = np.concatenate([np.zeros(1, np.int64), ends[:-1]])
+    ids = np.arange(len(lens), dtype=np.int64) if ids is None else ids
+    return np.frombuffer(b"".join(payloads), np.uint8), device_common.Blocks(
+        start, plan.bits.astype(np.int64), lens, plan.mins.astype(np.int64),
+        config, ids)
+
+
+def ragged_timed(dev, span, col, what, mode="uniform", want=None,
+                 timed=True):
+    """A column staged as a read stages it (``stage_columns``), through
+    the ragged entry: held against its plain version on the same tensors
+    (and against ``want``, a tensor, where given), bitwise, then, where
+    ``timed``, both timed (CUDA events, median of 7).  At these shapes a
+    call's events hold the host's time to issue it, so the kernel is also
+    timed alone: ``GRAPH_LAUNCHES`` launches captured in one CUDA graph,
+    a replay's time over their number.  Returns ``(what, ms, kernel ms,
+    plain ms, bound)``, the bound from the bytes the launch must move (the
+    span, the table, the output) by :func:`bound`."""
+    src, (s,) = device_common.stage_columns(span, [col], dev, mode, seed=0)
+    if col.config is None:
+        def run():
+            return decode.decode_int_ragged(src, s.table)
+
+        def plain():
+            return decode.decode_int_ragged_plain(src, s.table)
+
+        same_ints(run(), plain(), what)
+        out_bytes, ops = 8, 4
+    else:
+        def run():
+            return decode.decode_float_ragged(src, s.table, s.params, mode,
+                                              s.k1, s.k2)
+
+        def plain():
+            return decode.decode_float_ragged_plain(src, s.table, s.params,
+                                                    mode, s.k1, s.k2)
+
+        float_err(run(), plain())
+        out_bytes, ops = 4, 24
+    if want is not None:
+        same_ints(run(), want, what + " round trip")
+    if not timed:
+        return None
+    tensors = [src, *s.table[:5], *(s.params or ()), s.k1, s.k2]
+    n = s.table.total
+    moved = sum(t.numel() * t.element_size() for t in tensors
+                if t is not None) + n * out_bytes
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kept = [run() for _ in range(GRAPH_LAUNCHES)]
+    kernel_ms = time_ms(graph.replay) / GRAPH_LAUNCHES
+    del graph, kept
+    return ("%s (%d blocks, %d elements, widths %d..%d, %d bytes in)"
+            % (what, len(col.lens), n, col.bits.min(), col.bits.max(),
+               src.numel() * 4),
+            time_ms(run), kernel_ms, time_ms(plain, reps=3, warmup=1),
+            bound(moved, ops * n)["bound_ms"])
+
+
+def log_ragged(what, rows):
+    log("%s through the ragged entry, ms (CUDA events, median of 7: the "
+        "call, and the kernel alone in a graph of %d launches; plain median "
+        "of 3; bound by bytes at 3.35 TB/s): %s"
+        % (what, GRAPH_LAUNCHES, "; ".join(
+            "%s: call %.4f, kernel %.4f, plain %.4f, bound %.4f" % r
+            for r in rows)))
 
 
 def check_boundary_shapes(dev, rng):
     """Each kernel against its plain version at the shapes phase 5 gives
     it, and timed there.  K1 and K3 take one column of 512 ragged cells,
     as ``DeviceBoundaryWriter`` batches them: 3,619..4,026 rows, zeros
-    beyond each cell's length, one empty cell.  K2 and K4 take a bucket of
-    three cells of one length, as the bucketed read groups them: the
-    writer's own words (a round trip for K4), and K4 also random words at
-    the int widths of the boundary file (1, 3, 20 and 54 bits)."""
-    b, k, n = CELLS ** 3, 3, 3800
+    beyond each cell's length, one empty cell.  K2 and K4 take that column
+    whole, one launch, as the read gives it to them: the writer's payloads
+    back to back as the file holds them (a round trip for K4), and K4 also
+    a column of random bytes at the int widths of the boundary file (1, 3,
+    20 and 54 bits)."""
+    b = CELLS ** 3
     lens_np = rng.integers(3619, 4027, b)
-    lens_np[:k], lens_np[b // 2] = n, 0
+    lens_np[b // 2] = 0
     width = int(lens_np.max())
     mask = np.arange(width)[None, :] < lens_np[:, None]
     lens = torch.from_numpy(lens_np).to(dev)
     side = 250.0 / CELLS
     t = []  # (what, ms)
+    rows = []  # ragged_timed's
 
     def timed(what, fn, **kw):
         t.append((what, time_ms(fn, **kw)))
@@ -1488,14 +1649,12 @@ def check_boundary_shapes(dev, rng):
         if err:
             raise AssertionError("K1 at 512 ragged cells, %s: max err %d"
                                  % (name, err))
-        col = (bucket(words, plan, n, k),
-               torch.from_numpy(plan.mins[:k]).to(dev),
-               codec.BlockParams(*(p[:k] for p in params)),
-               int(plan.bits[0]), n)
-        keys = codec.dither_keys(np.arange(k), 0, dev)
-        for mode in codec.DITHER_MODES:
-            float_err(decode.decode_float_group(*col, mode, *keys),
-                      decode.decode_float_plain(*col, mode, *keys))
+        span, col = file_column(words, plan, lens_np, (
+            np.full(b, lo, np.float32), np.full(b, hi, np.float32),
+            np.full(b, pixels, np.int64), np.full(b, name == "x")))
+        for mode in ("none", "midpoint"):
+            ragged_timed(dev, span, col, "K2 " + mode, mode, timed=False)
+        rows.append(ragged_timed(dev, span, col, "K2 uniform, %s" % name))
 
         def plain_enc():
             st = encode.float_stats_plain(xt, params, lens)
@@ -1505,10 +1664,6 @@ def check_boundary_shapes(dev, rng):
         timed("K1 call, %s" % name,
               lambda: encode.encode_float_group(xt, params, lens))
         timed("plain", plain_enc, reps=3, warmup=1)
-        timed("K2 uniform, %s at %d bits" % (name, col[3]),
-              lambda: decode.decode_float_group(*col, "uniform", *keys))
-        timed("plain",
-              lambda: decode.decode_float_plain(*col, "uniform", *keys))
 
     # int columns: id (2^53 + 1 + 20 bits), pid (-1 or an ID), num_prog
     ids = (1 << 53) + 1 + rng.integers(0, ROWS, (b, width))
@@ -1521,34 +1676,31 @@ def check_boundary_shapes(dev, rng):
         if err:
             raise AssertionError("K3 at 512 ragged cells, %s: max err %d"
                                  % (name, err))
-        col = (bucket(iwords, iplan, n, k),
-               torch.from_numpy(iplan.mins[:k]).to(dev), int(iplan.bits[0]),
-               n)
-        got = decode.decode_int_group(*col)
-        same_ints(got, decode.decode_int_plain(*col),
-                  "K4 on a bucket of %s" % name)
-        same_ints(got, it[:k, :n], "K4 round trip of %s" % name)
-        timed("K3 call, %s at %d bits" % (name, col[2]),
+        span, col = file_column(iwords, iplan, lens_np)
+        rows.append(ragged_timed(dev, span, col, "K4, %s" % name,
+                                 want=it[torch.from_numpy(mask).to(dev)]))
+        timed("K3 call, %s at %s bits"
+              % (name, sorted(set(iplan.bits.tolist()))),
               lambda: encode.encode_int_group(it, lens))
         timed("plain", lambda: encode.delta_pack_int_plain(it, lens, iplan),
               reps=3, warmup=1)
-    for bits in (1, 3, 20, 54):
-        words = rng.integers(0, 1 << 32, (k, bitpack.words_per_block(bits, n)),
-                             dtype=np.uint64).astype(np.uint32)
-        col = (torch.from_numpy(words.view(np.int32)).to(dev),
-               torch.from_numpy(ids[:k, 0].copy()).to(dev), bits, n)
-        same_ints(decode.decode_int_group(*col), decode.decode_int_plain(*col),
-                  "K4 on a bucket at %d bits" % bits)
-        timed("K4 at %d bits" % bits, lambda: decode.decode_int_group(*col))
-        timed("plain", lambda: decode.decode_int_plain(*col))
+    widths = np.array([(1, 3, 20, 54)[i % 4] for i in range(b)], np.int64)
+    nbytes = (widths * lens_np + 7) // 8
+    start = np.concatenate([np.zeros(1, np.int64), np.cumsum(nbytes)[:-1]])
+    rows.append(ragged_timed(
+        dev, rng.integers(0, 256, int(nbytes.sum()), dtype=np.uint8),
+        device_common.Blocks(start, widths, lens_np.astype(np.int64),
+                             ids[:, 0].copy(), None, np.arange(b)),
+        "K4, random bytes"))
     log("boundary-path shapes: K1 (512, %d) and K3 (512, %d), cells of "
-        "%d..%d rows and one empty, K2 and K4 (%d, %d): bitwise equal to "
-        "the plain versions, K4 to K3's input"
-        % (width, width, lens_np[lens_np > 0].min(), width, k, n))
+        "%d..%d rows and one empty; K2 (three modes) and K4 on each column "
+        "of 512 cells, one launch: bitwise equal to the plain versions, K4 "
+        "to K3's input" % (width, width, lens_np[lens_np > 0].min(), width))
     log("boundary-path shapes, ms (CUDA events, median of 7; the plain "
         "versions of K1 and K3 median of 3; each 'plain' is the plain "
         "version of the entry before it): %s"
         % ", ".join("%s %.4f" % kv for kv in t))
+    log_ragged("boundary-path columns", rows)
 
 
 def boundary_path(dev):
@@ -1606,11 +1758,20 @@ def boundary_path(dev):
                 got[n].view(np.uint8), v.view(np.uint8)):
             raise AssertionError("boundary column %s read on the card "
                                  "differs from the host reader" % n)
+    r = minh.open(bnd)
+    types = [c.type for c in r.columns]
+    r.close()
+    k2, k4 = after["K2"] - before["K2"], after["K4"] - before["K4"]
+    if (k2, k4) != (types.count(minh.Float), types.count(minh.Int)):
+        raise AssertionError("the boundary file read launched K2 %d and K4 "
+                             "%d times for %d Float and %d Int columns"
+                             % (k2, k4, types.count(minh.Float),
+                                types.count(minh.Int)))
     log("boundary file read, %d columns, uniform: %.3f s on the card in %d "
-        "K2 and %d K4 launches (one per cell length and width), host reader "
+        "K2 and %d K4 launches (one a column: %d Float, %d Int), host reader "
         "%.3f s; bitwise equal"
-        % (len(want), t_read, after["K2"] - before["K2"],
-           after["K4"] - before["K4"], t_host_read))
+        % (len(want), t_read, k2, k4, types.count(minh.Float),
+           types.count(minh.Int), t_host_read))
 
     t0 = time.perf_counter()
     out = printed(inspect_minh.main, [bnd, "--device"])
@@ -1627,6 +1788,21 @@ def boundary_path(dev):
     log("boundary path launches: %s; K4 widths of the source file %s; "
         "%.3f s in all"
         % (launches, sorted(widths), time.perf_counter() - t_start))
+    # after the count: two of its columns as the read stages them, through
+    # the ragged entry, against the plain version and timed
+    r = minh.open(bnd)
+    try:
+        rows = []
+        for name in ("x", "id"):
+            blocks = device_common.tail_blocks(r.f, [
+                r._block_idx(r._col(name), b) for b in range(r.blocks)])
+            span, s0 = device_common.read_span(r.f, [blocks])
+            rows.append(ragged_timed(
+                dev, span, blocks._replace(start=blocks.start - s0),
+                "K%d, the %s column" % (2 if name == "x" else 4, name)))
+    finally:
+        r.close()
+    log_ragged("boundary file columns", rows)
     need(launches, KERNELS[:4], "the boundary path")
     if not (min(widths) <= 32 < max(widths)):
         raise AssertionError("K4 ran at widths %s: not both <= 32 and > 32"
@@ -1680,11 +1856,11 @@ def check_snapshot_shapes(dev, gadget):
     """K1 and K2 against their plain versions at the shapes phase 6 gives
     them, and timed there: K1 on one axis of one file (512 sub-cell
     blocks of 4,096, as ``minp.Writer`` batches them), positions and
-    velocities; K2 on its widest bucket of blocks of one width, in the
-    three modes.  The blocks are the converter's own (``snapshot.Grid``
-    of the fileset)."""
+    velocities; K2 on the whole axis, one launch, in the three modes, as
+    ``read_vectors`` gives it the blocks of a file.  The blocks are the
+    converter's own (``snapshot.Grid`` of the fileset)."""
     grid = snapshot.Grid(lgadget2.LGadget2Snapshot(gadget), FILE_CELLS)
-    t = []
+    t, rows = [], []
     for kind, vec, dx, periodic in (("x", grid.read_x(0), SNAP_DX, True),
                                     ("v", grid.read_v(0), SNAP_DV, False)):
         blocks = minp.split_sub_cells(vec, SUB_CELLS)[:, :, 0]
@@ -1711,18 +1887,13 @@ def check_snapshot_shapes(dev, gadget):
             raise AssertionError("K1 at phase 6's shape, %s: max err %d"
                                  % (kind, err))
         widths, per = np.unique(plan.bits[plan.valid], return_counts=True)
-        width = int(widths[per.argmax()])
-        ids = np.nonzero(plan.valid & (plan.bits == width))[0]
-        nw = bitpack.words_per_block(width, n)
-        col = (torch.stack([words[int(plan.offsets[i]):
-                                  int(plan.offsets[i]) + nw] for i in ids]),
-               torch.from_numpy(plan.mins[ids]).to(dev),
-               codec.BlockParams(*(v[torch.from_numpy(ids).to(dev)]
-                                   for v in params)), width, n)
-        keys = codec.dither_keys(ids, 0, dev)
-        for mode in codec.DITHER_MODES:
-            float_err(decode.decode_float_group(*col, mode, *keys),
-                      decode.decode_float_plain(*col, mode, *keys))
+        span, col = file_column(words, plan, np.full(b, n), (
+            np.full(b, lo, np.float32), np.full(b, hi, np.float32),
+            np.full(b, pixels, np.int64), np.ones(b, bool)))
+        for mode in ("none", "midpoint"):
+            ragged_timed(dev, span, col, "K2 " + mode, mode, timed=False)
+        rows.append(ragged_timed(dev, span, col, "K2 uniform, the %s axis"
+                                 % kind))
 
         def plain_enc():
             st = encode.float_stats_plain(xt, params, lens)
@@ -1731,19 +1902,14 @@ def check_snapshot_shapes(dev, gadget):
 
         t += [("K1 call, %s" % kind,
                time_ms(lambda: encode.encode_float_group(xt, params, lens))),
-              ("plain", time_ms(plain_enc, reps=3, warmup=1)),
-              ("K2 uniform, (%d, %d) %s at %d bits" % (len(ids), n, kind,
-                                                       width),
-               time_ms(lambda: decode.decode_float_group(*col, "uniform",
-                                                         *keys))),
-              ("plain", time_ms(lambda: decode.decode_float_plain(
-                  *col, "uniform", *keys)))]
+              ("plain", time_ms(plain_enc, reps=3, warmup=1))]
         log("snapshot shapes, %s: K1 (%d, %d), widths %s (blocks %s), K2 "
-            "on the %d-bit bucket in three modes: bitwise equal to the plain "
-            "versions" % (kind, b, n, widths.tolist(), per.tolist(), width))
+            "on the whole axis, one launch, in three modes: bitwise equal to "
+            "the plain versions" % (kind, b, n, widths.tolist(), per.tolist()))
     log("snapshot shapes, ms (CUDA events, median of 7; the plain version "
         "of K1 median of 3; each 'plain' is the plain version of the entry "
         "before it): %s" % ", ".join("%s %.4f" % kv for kv in t))
+    log_ragged("snapshot axes", rows)
 
 
 def snapshot_path(dev):
@@ -1792,10 +1958,12 @@ def snapshot_path(dev):
         for mode in modes:
             r = minp.open(os.path.join(dev_dir, f), dither=mode, seed=5)
             try:
+                k2 = decode.K2_LAUNCHES
                 t0 = time.perf_counter()
                 got = minp_device.read_vectors(r, dev)
                 torch.cuda.synchronize()
                 t_read = time.perf_counter() - t0
+                k2 = decode.K2_LAUNCHES - k2
                 t0 = time.perf_counter()
                 want = r.vectors()
                 t_host_read = time.perf_counter() - t0
@@ -1806,6 +1974,9 @@ def snapshot_path(dev):
                     got.view(np.int32), want.view(np.int32)):
                 raise AssertionError("read_vectors(%s) differs from the host "
                                      "reader in mode %s" % (f, mode))
+            if k2 != 1:
+                raise AssertionError("read_vectors(%s) launched K2 %d times"
+                                     % (f, k2))
             reads.append((mode, t_read, t_host_read))
             if f in ("x_0.minp", "v_0.minp") and mode == "uniform":
                 src = (pos if f[0] == "x" else vel)[
@@ -1822,9 +1993,10 @@ def snapshot_path(dev):
                     % (f, len(got), d.max(), step))
     for mode in ("uniform", "none", "midpoint"):
         ts = [(a, b) for m, a, b in reads if m == mode]
-        log("read_vectors %s: %d files on the card in %.3f s, host reader "
-            "%.3f s; bitwise equal"
-            % (mode, len(ts), sum(a for a, _ in ts), sum(b for _, b in ts)))
+        log("read_vectors %s: %d files on the card in %.3f s (%d K2 "
+            "launches, one a file), host reader %.3f s; bitwise equal"
+            % (mode, len(ts), sum(a for a, _ in ts), len(ts),
+               sum(b for _, b in ts)))
     launches = counts()
     log("snapshot path launches: %s; %.3f s in all"
         % (launches, time.perf_counter() - t_start))
@@ -1833,6 +2005,22 @@ def snapshot_path(dev):
     os.replace(os.path.join(dev_dir, "x_0.minp"),
                os.path.join(WORK, "x_0.minp"))
     shutil.rmtree(work)
+    # after the count: one file as read_vectors stages it, through the
+    # ragged entry, against the plain version and timed
+    r = minp.open(os.path.join(WORK, "x_0.minp"))
+    try:
+        s3 = r.f.blocks() // 3
+        rows = []
+        for what, ids in (("an axis", range(s3)),
+                          ("the file", range(3 * s3))):
+            blocks = device_common.tail_blocks(r.f, ids)
+            span, s0 = device_common.read_span(r.f, [blocks])
+            rows.append(ragged_timed(
+                dev, span, blocks._replace(start=blocks.start - s0),
+                "K2 uniform, %s of x_0.minp" % what))
+    finally:
+        r.close()
+    log_ragged("snapshot file", rows)
     return launches
 
 
@@ -1970,10 +2158,11 @@ def multiprocess_runs():
                report["file_bytes"], report["seconds"],
                [r["bytes_sent"] for r in report["ranks"]]))
         for r in report["ranks"]:
-            log("  rank %d: %s; launches %s; ID widths %s"
+            log("  rank %d: %s; launches %s, of them the read-back's %s; ID "
+                "widths %s"
                 % (r["rank"], ", ".join("%s %.3f s" % kv
                                         for kv in r["seconds"].items()),
-                   r["launches"], r["int_widths"]))
+                   r["launches"], r["read_back_launches"], r["int_widths"]))
     return total
 
 

@@ -5,12 +5,12 @@
 // (minnow_tpu/core/spec.py:87-127; ref go/bit/bit.go).
 //
 // Both directions are in gather form: a thread computes one whole output
-// word (pack) or one whole element (unpack) from what it reads, so no two
-// threads write the same word, nothing needs atomics, and the bytes do not
-// depend on scheduling.  They replace the TPU's planar tile pack and
-// unpack (minnow_tpu/ops/pallas_encode.py:218 _pack_tile_planar,
-// minnow_tpu/ops/pallas_codec.py:355 _unpack_group_tiles), which exist to
-// fit the (8, 128) vreg tiling.  gather_word serves the int pack, whose
+// word (pack) or one whole element (unpack, at any start bit) from what
+// it reads, so no two threads write the same word, nothing needs atomics,
+// and the bytes do not depend on scheduling.  They replace the TPU's
+// planar tile pack and unpack (minnow_tpu/ops/pallas_encode.py:218
+// _pack_tile_planar, minnow_tpu/ops/pallas_codec.py:355
+// _unpack_group_tiles), which exist to fit the (8, 128) vreg tiling.  gather_word serves the int pack, whose
 // widths reach 64; the float packs (encode_float.cu) pack groups of 32
 // elements in registers, one thread a group, and only divide by the
 // width, with the helpers at the end of this file.
@@ -46,18 +46,20 @@ __device__ __forceinline__ uint32_t gather_word(long long w, int bits,
   return word;
 }
 
-// Element i of the stream in `words`, width `bits` (1..64).  Reads only
-// the words the element's bits lie in, so it never reads past the
-// stream's last word.
-__device__ __forceinline__ uint64_t element(const uint32_t* words,
-                                            long long i, int bits) {
-  const long long p = i * bits;
-  const long long w = p >> 5;
-  const int s = (int)(p & 31);
-  uint64_t acc = words[w];
-  if (s + bits > 32) acc |= (uint64_t)words[w + 1] << 32;
+// The element of width `bits` (1..64) that starts at bit `bit` of the
+// stream in `src`: element i of a stream that starts at bit s0 lies at
+// bit s0 + i * bits, wherever s0 falls in a word.  Reads only the words
+// the element's bits lie in, so it never reads past the word that holds
+// the stream's last bit; bits of a neighbouring stream in those words are
+// masked off.
+__device__ __forceinline__ uint64_t element_at(const uint32_t* src,
+                                               long long bit, int bits) {
+  const long long w = bit >> 5;
+  const int s = (int)(bit & 31);
+  uint64_t acc = src[w];
+  if (s + bits > 32) acc |= (uint64_t)src[w + 1] << 32;
   uint64_t v = acc >> s;
-  if (s + bits > 64) v |= (uint64_t)words[w + 2] << (64 - s);
+  if (s + bits > 64) v |= (uint64_t)src[w + 2] << (64 - s);
   return v & low_mask(bits);
 }
 

@@ -1,14 +1,15 @@
 """Device-batched minh reads: decode whole Float and Int columns on the
 device (counterpart of ``minnow_tpu/formats/minh_device.py``).
 
-The packed payloads are gathered on the host (file IO), grouped into
-buckets of equal block length and width, and each bucket is decoded by
-one launch of kernel K2 (floats, ``device_common.group_decode``) or K4
-(ints, ``device_common.group_decode_ints``).  The result equals
-``reader.floats`` / ``reader.ints`` bitwise, floats in every dither mode:
-the device runs the host reader's arithmetic (``spec.dequantize``,
-``spec.decode_int_block``) and its dither stream, keyed on the same
-container block index.
+Each column's blocks come from the container's parsed tail; the bytes of
+all the columns a call asks for come from one read of the file span that
+holds them, go to the device in one copy, and each column is decoded by
+one launch of kernel K2 (floats) or K4 (ints), ragged over its row-blocks
+(``device_common.read_columns``), and comes back in one copy.  The
+result equals ``reader.floats`` / ``reader.ints`` bitwise, floats in every
+dither mode: the device runs the host reader's arithmetic
+(``spec.dequantize``, ``spec.decode_int_block``) and its dither stream,
+keyed on the same container block index.
 """
 
 from __future__ import annotations
@@ -16,47 +17,25 @@ from __future__ import annotations
 import numpy as np
 
 from ..core import types as ctypes_
-from ..ops import bitpack
 from ..utils.device import cuda_device
 from . import minh
-from .device_common import group_decode, group_decode_ints
+from .device_common import read_columns, tail_blocks
 
 __all__ = ["read_floats", "read_ints", "read_column", "block_widths"]
 
 
-def _raw_blocks(reader, c: int):
-    """Container block index and raw block (``raw_block``: payload, min,
-    bits, n, config) of each row-block of column ``c``."""
-    # the container block index is also the dither key, as the host
-    # reader passes it (core/reader.py data(b))
-    block_ids = [reader._block_idx(c, b) for b in range(reader.blocks)]
-    return block_ids, [reader.f.raw_block(i) for i in block_ids]
+def _column_ids(reader, c: int) -> list:
+    """The container block index of each row-block of column ``c``: also
+    the dither key, as the host reader passes it (core/reader.py
+    data(b))."""
+    return [reader._block_idx(c, b) for b in range(reader.blocks)]
 
 
 def block_widths(reader, name: str) -> list:
-    """The distinct widths of column ``name``'s blocks, ascending: the
-    widths its device read decodes at."""
-    return sorted({r[2] for r in _raw_blocks(reader, reader._col(name))[1]})
-
-
-def _buckets(reader, c: int):
-    """``_raw_blocks`` of column ``c``, and its row-blocks grouped by
-    (n, bits) with their (B, W) uint32 word matrix and (B,) minimums."""
-    block_ids, raw = _raw_blocks(reader, c)
-    groups: dict = {}
-    for b, (_, _, bits, n, _) in enumerate(raw):
-        groups.setdefault((n, bits), []).append(b)
-    out = []
-    for (n, bits), ids in groups.items():
-        words = np.zeros((len(ids), max(bitpack.words_per_block(bits, n), 1)),
-                         dtype=np.uint32)
-        mins = np.empty(len(ids), np.int64)
-        for row, b in enumerate(ids):
-            payload, mins[row] = raw[b][:2]
-            if bits:
-                words[row] = bitpack.bytes_to_words(payload, bits, n)
-        out.append((n, bits, ids, words, mins))
-    return block_ids, raw, out
+    """The distinct widths of column ``name``'s blocks, ascending, from
+    the container's tail: the widths its device read decodes at."""
+    blocks = tail_blocks(reader.f, _column_ids(reader, reader._col(name)))
+    return sorted(set(blocks.bits.tolist()))
 
 
 def read_floats(reader, names, device=None, dither: str = None,
@@ -65,32 +44,22 @@ def read_floats(reader, names, device=None, dither: str = None,
     CUDA device, an error without one); returns ``{name: float32 numpy
     array}`` over all blocks, as ``reader.floats``.  ``dither``/``seed``
     default to the reader's own, so the result equals
-    ``reader.floats(names)`` bitwise."""
+    ``reader.floats(names)`` bitwise.  One launch of K2 a column."""
     if device is None:
         device = cuda_device()
     if dither is None:
         dither = reader.f.dither
     if seed is None:
         seed = reader.f.seed
+    cols = [reader._col(name) for name in names]
+    for c in cols:
+        ctypes_.type_match(np.empty(0, np.float32), reader.columns[c].type)
+    decoded = read_columns(reader.f, [_column_ids(reader, c) for c in cols],
+                           device, dither, seed)
     out = {}
-    for name in names:
-        c = reader._col(name)
-        col = reader.columns[c]
-        ctypes_.type_match(np.empty(0, np.float32), col.type)
-        block_ids, raw, buckets = _buckets(reader, c)
-        parts = [None] * len(raw)
-        for n, bits, ids, words, mins in buckets:
-            # (low, high, pixels, periodic) of each block
-            lows, highs, pixels, periodic = zip(*(raw[b][4] for b in ids))
-            dec = group_decode(words, mins, lows, highs, pixels, periodic,
-                               bits, n, dither,
-                               [block_ids[b] for b in ids], seed, device)
-            dec = dec.cpu().numpy()
-            for row, b in enumerate(ids):
-                parts[b] = dec[row]
-
-        arr = np.concatenate(parts) if parts else np.empty(0, np.float32)
-        if col.log != 0:
+    for name, c, dec in zip(names, cols, decoded):
+        arr = dec.cpu().numpy()
+        if reader.columns[c].log != 0:
             # ref go/minh/minh.go:315-319: 10**x in float64 -> float32
             arr = np.float32(np.power(10.0, arr.astype(np.float64)))
         out[name] = arr
@@ -102,24 +71,18 @@ def read_ints(reader, names, device=None):
     ``device`` (default: the CUDA device, an error without one); returns
     ``{name: int64 numpy array}`` over all blocks, bitwise equal to
     ``reader.ints(names)``.  Raw ``Int64`` columns have nothing to decode
-    and are refused: read them with ``reader.ints``."""
+    and are refused: read them with ``reader.ints``.  One launch of K4 a
+    column."""
     if device is None:
         device = cuda_device()
-    out = {}
-    for name in names:
-        c = reader._col(name)
+    cols = [reader._col(name) for name in names]
+    for name, c in zip(names, cols):
         if reader.columns[c].type != minh.Int:
             raise TypeError("column %s is not an Int column (type %d)"
                             % (name, reader.columns[c].type))
-        _, raw, buckets = _buckets(reader, c)
-        parts = [None] * len(raw)
-        for n, bits, ids, words, mins in buckets:
-            dec = group_decode_ints(words, mins, bits, n, device)
-            dec = dec.cpu().numpy()
-            for row, b in enumerate(ids):
-                parts[b] = dec[row]
-        out[name] = np.concatenate(parts) if parts else np.empty(0, np.int64)
-    return out
+    decoded = read_columns(reader.f, [_column_ids(reader, c) for c in cols],
+                           device)
+    return {name: dec.cpu().numpy() for name, dec in zip(names, decoded)}
 
 
 def read_column(reader, name, device=None):

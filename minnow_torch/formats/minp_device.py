@@ -2,9 +2,10 @@
 blocks on the device (counterpart of ``minnow_tpu/formats/minp_device.py``).
 
 The host reader (``minnow_tpu.formats.minp.Reader.vectors``) decodes the
-file's ``3 * subCells**3`` blocks one at a time.  Here each axis's blocks
-are grouped by width, and each group is decoded by one launch of kernel
-K2 (``device_common.group_decode``; its plain version on the CPU), keyed
+file's ``3 * subCells**3`` blocks one at a time.  Here the file's data
+region -- its three axes' groups, back to back -- is read once, copied to
+the device once, and all its blocks are decoded by one launch of kernel
+K2 (``device_common.read_columns``; its plain version on the CPU), keyed
 for the ``uniform`` dither on the container block index as the host
 reader keys it.  The periodic wrap into ``[0, L)`` and the sub-cell
 reordering run on the device too, so the result equals
@@ -17,9 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import bitpack
 from ..utils.device import cuda_device
-from .device_common import group_decode
+from .device_common import read_columns
 
 __all__ = ["read_vectors"]
 
@@ -54,24 +54,8 @@ def read_vectors(reader, device=None, dither: str = None,
         raise ValueError("Expected %d sub-cell blocks, but got %d"
                          % (3 * s3, reader.f.blocks()))
     n = reader.f.data_len(0)
-    out = torch.empty((3, s3, n), dtype=torch.float32, device=device)
-    for k in range(3):
-        # (payload, min, bits, n, (low, high, pixels, periodic)) per block
-        raw = [reader.f.raw_block(k * s3 + sc) for sc in range(s3)]
-        buckets: dict = {}
-        for sc, r in enumerate(raw):
-            buckets.setdefault(r[2], []).append(sc)
-        for bits, ids in buckets.items():
-            words = np.zeros((len(ids), max(bitpack.words_per_block(bits, n),
-                                            1)), np.uint32)
-            if bits:
-                for row, sc in enumerate(ids):
-                    words[row] = bitpack.bytes_to_words(raw[sc][0], bits, n)
-            mins = [raw[sc][1] for sc in ids]
-            lows, highs, pixels, periodic = zip(*(raw[sc][4] for sc in ids))
-            out[k, torch.tensor(ids, device=device)] = group_decode(
-                words, mins, lows, highs, pixels, periodic, bits, n, dither,
-                [k * s3 + sc for sc in ids], seed, device)
+    out = read_columns(reader.f, [range(3 * s3)], device, dither,
+                       seed)[0].view(3, s3, n)
     if reader.periodic:
         l = float(np.float32(reader.header.l))
         out = torch.where(out < 0, out + l, out)

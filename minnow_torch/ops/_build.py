@@ -53,14 +53,15 @@ _SIGNATURES = {
                                  _P, _I64, _P],
     "minnow_encode_float_pack_q": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P,
                                    _P, _I64, _P],
-    # words, B, row_words, n, bits, mins, low, dx, pixels, periodic,
-    # mode, k1, k2, out, grid_y, stream
-    "minnow_decode_float": [_P, _I64, _I64, _I64, _I32, _P, _P, _P, _P,
-                            _P, _I32, _P, _P, _P, _U32, _P],
+    # src, B, start_bit, bits, len, out_off, mins, low, dx, pixels,
+    # periodic, mode, k1, k2, out, grid_y, stream
+    "minnow_decode_float_ragged": [_P, _I64, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _I32, _P, _P, _P, _U32, _P],
     # x, B, n, mins, bits, lens, offsets, words, grid_y, stream
     "minnow_pack_int": [_P, _I64, _I64, _P, _P, _P, _P, _P, _U32, _P],
-    # words, B, row_words, n, bits, mins, out, grid_y, stream
-    "minnow_unpack_int": [_P, _I64, _I64, _I64, _I32, _P, _P, _U32, _P],
+    # src, B, start_bit, bits, len, out_off, mins, out, grid_y, stream
+    "minnow_unpack_int_ragged": [_P, _I64, _P, _P, _P, _P, _P, _P, _U32,
+                                 _P],
 }
 
 _lib = None

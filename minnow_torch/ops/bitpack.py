@@ -28,6 +28,7 @@ __all__ = [
     "block_layout",
     "pack",
     "unpack",
+    "unpack_at",
     "words_to_bytes",
     "bytes_to_words",
 ]
@@ -52,12 +53,12 @@ def block_layout(bits, lens):
 
 
 def _limb_masks(bits):
-    """Per-block masks of the low and high 32-bit halves of a
-    ``bits``-wide value; ``bits`` (B,) int64 tensor."""
+    """Masks of the low and high 32-bit halves of a ``bits``-wide value;
+    ``bits`` an int64 tensor, the masks of its shape."""
     one = torch.ones_like(bits)
     lo_mask = (one << bits.clamp(max=32)) - 1
     hi_mask = (one << (bits - 32).clamp(min=0)) - 1
-    return lo_mask[:, None], hi_mask[:, None]
+    return lo_mask, hi_mask
 
 
 def pack(values, bits, lens, offsets, total: int):
@@ -73,7 +74,7 @@ def pack(values, bits, lens, offsets, total: int):
     b, n = values.shape
     dev = values.device
     i = torch.arange(n, device=dev, dtype=torch.int64)[None, :]
-    lo_mask, hi_mask = _limb_masks(bits)
+    lo_mask, hi_mask = _limb_masks(bits[:, None])
     keep = i < lens[:, None]
     lo = torch.where(keep, values & lo_mask, 0)
     hi = torch.where(keep, (values >> 32) & M32 & hi_mask, 0)
@@ -92,23 +93,32 @@ def pack(values, bits, lens, offsets, total: int):
     return out[:total].to(torch.int32)
 
 
-def unpack(words, offsets, bits, n: int):
-    """Inverse of :func:`pack`: ``n`` elements of each block stream ->
-    (B, n) int64 (the uint64 bit pattern).  ``words`` is a flat int32
-    word buffer; ``offsets`` and ``bits`` are (B,) int64 tensors."""
+def unpack_at(words, bit, bits):
+    """The elements of width ``bits`` that start at stream bit ``bit`` of
+    a flat int32 word buffer ``words``: int64 tensors ``bit`` and
+    ``bits`` (0..64) of one shape (or broadcasting) -> int64 of that
+    shape (the uint64 bit pattern).  A stream may start at any bit, as
+    the blocks of a file do at byte boundaries."""
     dev = words.device
     w64 = torch.cat([words.to(torch.int64) & M32,
                      torch.zeros(2, dtype=torch.int64, device=dev)])
     last = w64.shape[0] - 1
-    i = torch.arange(n, device=dev, dtype=torch.int64)[None, :]
-    p = i * bits[:, None]
-    w = offsets[:, None] + (p >> 5)
-    s = p & 31
+    w = bit >> 5
+    s = bit & 31
     a, b, c = (w64[(w + k).clamp(max=last)] for k in range(3))
     lo_mask, hi_mask = _limb_masks(bits)
     lo = ((a >> s) | (b << (32 - s))) & M32 & lo_mask
     hi = ((b >> s) | (c << (32 - s))) & M32 & hi_mask
     return lo | (hi << 32)
+
+
+def unpack(words, offsets, bits, n: int):
+    """Inverse of :func:`pack`: ``n`` elements of each block stream ->
+    (B, n) int64 (the uint64 bit pattern).  ``words`` is a flat int32
+    word buffer; ``offsets`` and ``bits`` are (B,) int64 tensors."""
+    i = torch.arange(n, device=words.device, dtype=torch.int64)[None, :]
+    return unpack_at(words, offsets[:, None] * 32 + i * bits[:, None],
+                     bits[:, None])
 
 
 # -- host-side glue (numpy; equal to minnow_tpu/ops/bitpack.py:263-274) ----

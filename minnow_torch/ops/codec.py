@@ -31,6 +31,7 @@ from ..core import dither as dither_mod
 
 __all__ = [
     "BlockParams",
+    "block_config",
     "block_params",
     "quantize",
     "periodic_distance",
@@ -39,6 +40,7 @@ __all__ = [
     "int_block_stats",
     "dequantize",
     "dither_keys",
+    "dither_keys_np",
     "dither_hash_u",
     "DITHER_MODES",
 ]
@@ -60,12 +62,13 @@ class BlockParams(NamedTuple):
     periodic: torch.Tensor  # bool
 
 
-def block_params(low, high, pixels, periodic, device) -> BlockParams:
-    """Per-block configs from the numpy arrays the host functions
-    take.  ``dx = f32(f32(high - low) / f32(pixels))`` is
-    ``spec.quantize_dx`` (= ``codec._dx64``).  Pixel counts are int64,
-    at least 1: the kernels quantize to int32 and certify a block by the
-    pixels its data holds, whatever its count."""
+def block_config(low, high, pixels, periodic):
+    """Per-block configs as numpy arrays ``(low, dx, pixels, periodic)``
+    (float32, float32, int64, bool) from what the host functions take.
+    ``dx = f32(f32(high - low) / f32(pixels))`` is ``spec.quantize_dx``
+    (= ``codec._dx64``).  Pixel counts are int64, at least 1: the kernels
+    quantize to int32 and certify a block by the pixels its data holds,
+    whatever its count."""
     low = np.atleast_1d(np.asarray(low, np.float32))
     high = np.atleast_1d(np.asarray(high, np.float32))
     pixels = np.atleast_1d(np.asarray(pixels, np.int64))
@@ -75,12 +78,13 @@ def block_params(low, high, pixels, periodic, device) -> BlockParams:
                          % pixels.min())
     with np.errstate(all="ignore"):
         dx = (high - low).astype(np.float32) / pixels.astype(np.float32)
+    return low, dx.astype(np.float32), pixels, periodic
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return BlockParams(put(low), put(dx.astype(np.float32)),
-                       put(pixels), put(periodic))
+def block_params(low, high, pixels, periodic, device) -> BlockParams:
+    """:func:`block_config` on ``device``."""
+    return BlockParams(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                         for a in block_config(low, high, pixels, periodic)))
 
 
 def quantize(x, low, dx):
@@ -205,18 +209,20 @@ def dequantize(q, low, dx, u=None):
     return prod + low[:, None]
 
 
-def dither_keys(block_ids, seed: int, device):
-    """Per-block uniform-dither keys ``(k1, k2)`` as int32 tensors holding
-    the uint32 bit patterns: ``core/dither._np_fold_in``, bitwise equal
-    to ``codec.dither_keys``."""
+def dither_keys_np(block_ids, seed: int):
+    """Per-block uniform-dither keys ``(k1, k2)`` as int32 numpy arrays
+    holding the uint32 bit patterns: ``core/dither._np_fold_in``, bitwise
+    equal to ``codec.dither_keys``."""
     ids = np.asarray(block_ids, np.int64)
     k1, k2 = dither_mod._np_fold_in(int(seed), ids)
+    return tuple(np.atleast_1d(np.asarray(k, np.uint32)).view(np.int32)
+                 for k in (k1, k2))
 
-    def put(k):
-        k = np.atleast_1d(np.asarray(k, np.uint32)).view(np.int32)
-        return torch.from_numpy(k.copy()).to(device)
 
-    return put(k1), put(k2)
+def dither_keys(block_ids, seed: int, device):
+    """:func:`dither_keys_np` on ``device``."""
+    return tuple(torch.from_numpy(k.copy()).to(device)
+                 for k in dither_keys_np(block_ids, seed))
 
 
 def _mul32(x, c: int):

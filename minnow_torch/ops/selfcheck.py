@@ -21,7 +21,9 @@ Families, as in the reference: ``encode`` (K1 at the flagship width, K3
 at 41 and 18 bits), ``decode`` (K2 in ``none`` and ``midpoint``, K4 at 18
 and 41 bits) and ``decode_uniform`` (K2's counter-hash dither).  K1 and K2
 are also held at pixel counts of 2^31 and more (:func:`wide_float_blocks`),
-where the circle's arithmetic is 64-bit.
+where the circle's arithmetic is 64-bit, and K2 and K4 through the ragged
+entry the bulk reads take (:func:`check_ragged`: mixed widths, blocks at
+odd byte offsets, width 0).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from . import bitpack, codec, decode, encode
 
 __all__ = ["SelfCheckError", "kernel_ok", "certify", "reset",
            "spec_decode_float", "words_of", "payload_of", "FAMILIES",
-           "wide_float_blocks"]
+           "wide_float_blocks", "ragged_columns", "check_ragged"]
 
 # (family, device) -> None when it passed, the divergence when not
 _VERDICTS: dict = {}
@@ -301,6 +303,7 @@ def _check_decode(device) -> None:
             bitpack.words_to_bytes(wwords[i], wbits, _N), int(wmins[i]),
             wbits, _N), "K4 wide unpack at %d bits, block %d" % (wbits, i))
     _check_decode_wide(device, ("none", "midpoint"))
+    check_ragged(device, ("none", "midpoint"))
 
 
 def _check_decode_uniform(device) -> None:
@@ -319,6 +322,93 @@ def _check_decode_uniform(device) -> None:
                                         int(ids[i])),
               "K2 uniform decode, block %d" % i)
     _check_decode_wide(device, ("uniform",), seed=1)
+    check_ragged(device, ("uniform",), seed=1)
+
+
+def ragged_columns(rng, n: int = 2049):
+    """An int and a float column as a file holds them, for the ragged
+    decode: mixed widths (18, 41 and 64 bits among them), blocks of width
+    0 (a constant, a block of one element), lengths from 1 to ``n``, the
+    payloads back to back at byte boundaries after 3 bytes of other data,
+    so the first block starts at an odd byte.  Returns ``(span, columns,
+    blocks)``: the uint8 span, the two columns'
+    ``formats.device_common.Blocks`` and, a column each, every block's
+    ``(payload, min, bits, n, config)`` for the host reader's decode."""
+    from ..formats.device_common import Blocks
+
+    ints = []
+    for width, m in ((18, n), (0, 300), (41, n - 5), (64, 33), (1, 100),
+                     (7, 1)):
+        hi = (1 << 64) - 1 if width == 64 else 1 << width
+        d = rng.integers(0, hi, m, dtype=np.uint64) if width \
+            else np.zeros(m, np.uint64)
+        d[:2] = (0, hi - 1) if width and m > 1 else 0
+        lo = -(1 << 63) if width == 64 else (1 << 53) + 17
+        x = d.view(np.int64) + np.int64(lo)
+        payload, mn, bits = spec.encode_int_block(x)
+        ints.append((payload, mn, bits, m, None))
+    floats = []
+    pos = (np.float32(0), np.float32(250), 250000, True)
+    vel = (np.float32(-1e4), np.float32(1e4), 200000, False)
+    for cfg, lo, hi, m in ((pos, 0.0, 249.9, n), (pos, 3.0, 3.4, 257),
+                           (pos, 7.5, 7.5, n - 1), (vel, -9e3, 9e3, 33),
+                           (pos, 249.7, 250.3, n), (pos, 1.0, 1.0, 1)):
+        x = np.mod(rng.uniform(lo, hi, m), 250.0).astype(np.float32) \
+            if cfg[3] else rng.uniform(lo, hi, m).astype(np.float32)
+        payload, mn, bits, _ = spec.encode_float_block(x, *cfg)
+        floats.append((payload, mn, bits, m, cfg))
+    span = bytearray(b"\x5a\xa5\xff")
+    columns = []
+    for k, blocks in enumerate((ints, floats)):
+        start = []
+        for payload, *_ in blocks:
+            start.append(len(span))
+            span += payload
+        span += b"\xc3" * (k + 2)
+        config = None if blocks[0][4] is None else tuple(
+            np.array([b[4][j] for b in blocks], t)
+            for j, t in enumerate((np.float32, np.float32, np.int64,
+                                   bool)))
+        columns.append(Blocks(
+            np.array(start, np.int64),
+            np.array([b[2] for b in blocks], np.int64),
+            np.array([b[3] for b in blocks], np.int64),
+            np.array([b[1] for b in blocks], np.int64), config,
+            np.arange(len(blocks), dtype=np.int64) + (1 << 33) * (k + 1)))
+    return np.frombuffer(bytes(span), np.uint8), columns, (ints, floats)
+
+
+def check_ragged(device, modes, seed: int = 0, rng=None) -> None:
+    """K4 and K2 (in ``modes``) through the ragged entry, on
+    :func:`ragged_columns` staged as a read stages a file
+    (``device_common.stage_columns``), == the host reader's decode of
+    each block, bitwise: the route a bulk read takes, not only the (B, W)
+    wrapper."""
+    from ..formats.device_common import stage_columns
+
+    span, columns, (ints, floats) = ragged_columns(
+        np.random.default_rng(16) if rng is None else rng)
+    for mode in modes:
+        src, (si, sf) = stage_columns(span, columns, device, mode, seed)
+        got = decode.decode_int_ragged(src, si.table).cpu().numpy()
+        want = np.concatenate([spec.decode_int_block(p, mn, bits, m)
+                               for p, mn, bits, m, _ in ints])
+        _same(got, want, "K4 ragged decode (widths %s)"
+              % [b[2] for b in ints])
+        got = decode.decode_float_ragged(src, sf.table, sf.params, mode,
+                                         sf.k1, sf.k2).cpu().numpy()
+        parts = []
+        for i, (p, mn, bits, m, (low, high, pixels, per)) in \
+                enumerate(floats):
+            q = spec.decode_int_block(p, mn, bits, m)
+            if per:
+                q = spec.bound(q, 0, pixels)
+            parts.append(spec.dequantize(q, low, high, pixels,
+                                         u=dither_mod.dither_u(
+                                             mode, seed,
+                                             int(columns[1].ids[i]), m)))
+        _same(got, np.concatenate(parts), "K2 %s ragged decode (widths %s)"
+              % (mode, [b[2] for b in floats]))
 
 
 _CHECKS = {"encode": _check_encode, "decode": _check_decode,

@@ -32,8 +32,8 @@ import torch
 from ..core import spec
 from ..utils.device import cuda_device
 from . import bitpack, codec, decode, encode
-from .selfcheck import (payload_of, spec_decode_float, wide_float_blocks,
-                        words_of)
+from .selfcheck import (check_ragged, payload_of, spec_decode_float,
+                        wide_float_blocks, words_of)
 
 __all__ = ["validate_quantize", "validate_dequantize", "validate_pack",
            "validate_kernels", "validate_backend"]
@@ -237,8 +237,10 @@ def validate_kernels(device, n: int = 2051, seed: int = 5) -> dict:
     ``reuse_q``), K2 (float decode of K1's own payloads in ``none``,
     ``midpoint`` and ``uniform``), K3 (int delta pack, widths 1..64, IDs
     above 2^53 and minimums down to -2^63) and K4 (int unpack, widths
-    0..64).  Ragged, empty and non-periodic blocks ride in every batch;
-    a block with a NaN must come back uncertified.  K1, K5 and K2 are
+    0..64; both also through the ragged entry the bulk reads take, on a
+    column of mixed widths at odd byte offsets).  Ragged, empty and
+    non-periodic blocks ride in every batch; a block with a NaN must come
+    back uncertified.  K1, K5 and K2 are
     also held at pixel counts of 2^31 and more.  Returns the widths
     each kernel was held at."""
     rng = np.random.default_rng(seed)
@@ -345,6 +347,10 @@ def validate_kernels(device, n: int = 2051, seed: int = 5) -> dict:
                 or not np.array_equal(dec, xi[bits, :m]):
             raise AssertionError("K4 diverges from spec at %d bits" % bits)
         seen["K4"].add(bits)
+
+    # K2 and K4 through the ragged entry of the bulk reads: a column of
+    # mixed widths at odd byte offsets, width-0 blocks among them
+    check_ragged(device, tuple(codec.DITHER_MODES), seed, rng)
 
     want = {"K1": range(1, 33), "K2": range(1, 33), "K3": range(65),
             "K4": range(65), "K5": range(1, 33)}

@@ -22,8 +22,9 @@ with several devices the block axis of a batch is split into contiguous
 shares (``mesh.block_shards``), every share is queued on its device in a
 stream of its own before the first is read back, and the shares' results
 are joined in block order: byte for byte the one-device result.  The
-decode methods mirror it: payloads are bucketed by width and each bucket's
-rows are decoded by K4 (int) or K2 (float), shared out the same way.
+decode methods mirror it: the payloads are joined as they would lie in a
+file, and each device's share of the blocks goes to it in one copy and is
+decoded by one launch of K4 (int) or K2 (float), ragged over its blocks.
 
 The first CUDA use of a kernel family in a process certifies it
 (``ops.selfcheck``); a divergence raises and nothing is encoded.
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from ..core import spec
-from ..formats.device_common import group_decode, group_decode_ints
+from ..formats.device_common import Blocks, decode_columns
 from ..ops import bitpack, codec, encode, selfcheck
 from ..ops._launch import COUNT_LOCK
 from ..utils.device import cuda_device
@@ -102,17 +103,6 @@ def _float_capacity(pixels, periodic, lens) -> int:
     widest = np.where(periodic, np.frexp((pixels - 1).astype(np.float64))[1],
                       32)
     return int(bitpack.words_per_block(np.minimum(widest, 32), lens).sum())
-
-
-def _bucket_words(payloads, idx, width: int, n: int) -> np.ndarray:
-    """The (len(idx), W) uint32 word matrix of the blocks ``idx``, all of
-    ``n`` elements at ``width`` bits (one row of zeros each at width 0)."""
-    words = np.zeros((len(idx), max(bitpack.words_per_block(width, n), 1)),
-                     dtype=np.uint32)
-    if width:
-        for row, block_id in enumerate(idx):
-            words[row] = bitpack.bytes_to_words(payloads[block_id], width, n)
-    return words
 
 
 class BlockEncoder:
@@ -245,15 +235,28 @@ class BlockEncoder:
 
     # -- decode ------------------------------------------------------------
 
-    def _decode_shares(self, b: int, decode_share) -> np.ndarray:
-        """``decode_share(device, rows)`` queued for every device's share
-        of a bucket of ``b`` blocks, then read back and joined in block
-        order."""
+    def _decode(self, payloads, bits, lens, mins, config=None, ids=None,
+                dither: str = "none", seed: int = 0) -> np.ndarray:
+        """The blocks' elements back to back, in block order: the payloads
+        joined as they would lie in a file, each device's contiguous share
+        of them put on it in one copy and decoded by one launch, queued on
+        the share's stream before the first share is read back."""
+        b = len(payloads)
+        ends = np.cumsum([len(p) for p in payloads], dtype=np.int64)
+        starts = np.concatenate([np.zeros(1, np.int64), ends])
+        joined = np.frombuffer(b"".join(payloads), np.uint8)
+        if ids is None:
+            ids = np.arange(b, dtype=np.int64)
         shares = self._shares(b)
         queued = []
         for dev, stream, s in shares:
+            a, z = int(starts[s.start]), int(starts[s.stop])
+            col = Blocks(starts[s] - a, bits[s], lens[s], mins[s],
+                         None if config is None
+                         else tuple(c[s] for c in config), ids[s])
             with self._on(stream):
-                queued.append(decode_share(dev, s))
+                queued.append(decode_columns(joined[a:z], [col], dev, dither,
+                                             seed)[0])
         parts = []
         for (_, stream, _), dec in zip(shares, queued):
             with self._on(stream):
@@ -263,20 +266,9 @@ class BlockEncoder:
     def decode_int_blocks(self, payloads, mins, bits, n: int) -> np.ndarray:
         """Decode per-block payloads back to (B, n) int64."""
         b = len(payloads)
-        mins = np.asarray(mins, np.int64)
-        bits = np.asarray(bits, np.int64)
-        out = np.empty((b, n), dtype=np.int64)
-        for width in np.unique(bits):
-            width = int(width)
-            idx = np.nonzero(bits == width)[0]
-            if width == 0:
-                out[idx] = mins[idx, None]
-                continue
-            words = _bucket_words(payloads, idx, width, n)
-            out[idx] = self._decode_shares(
-                len(idx), lambda dev, s: group_decode_ints(
-                    words[s], mins[idx][s], width, n, dev))
-        return out
+        return self._decode(payloads, np.asarray(bits, np.int64),
+                            np.full(b, n, np.int64),
+                            np.asarray(mins, np.int64)).reshape(b, n)
 
     def decode_float_blocks(self, payloads, mins, bits, low, high, pixels,
                             n: int, periodic=True, dither: str = "none",
@@ -285,24 +277,12 @@ class BlockEncoder:
         (ref go/group.go:299-310).  ``block_ids`` are the container block
         indices the ``uniform`` dither is keyed on (default 0..B-1)."""
         b = len(payloads)
-        mins = np.asarray(mins, np.int64)
-        bits = np.asarray(bits, np.int64)
-        low = np.broadcast_to(np.asarray(low, np.float32), (b,))
-        high = np.broadcast_to(np.asarray(high, np.float32), (b,))
-        pixels = np.broadcast_to(np.asarray(pixels, np.int64), (b,))
-        periodic = np.broadcast_to(np.asarray(periodic, bool), (b,))
-        if block_ids is None:
-            block_ids = np.arange(b, dtype=np.int64)
-        block_ids = np.asarray(block_ids, np.int64)
-
-        out = np.empty((b, n), dtype=np.float32)
-        for width in np.unique(bits):
-            width = int(width)
-            idx = np.nonzero(bits == width)[0]
-            words = _bucket_words(payloads, idx, width, n)
-            out[idx] = self._decode_shares(
-                len(idx), lambda dev, s: group_decode(
-                    words[s], mins[idx][s], low[idx][s], high[idx][s],
-                    pixels[idx][s], periodic[idx][s], width, n, dither,
-                    block_ids[idx][s], seed, dev))
-        return out
+        config = (np.broadcast_to(np.asarray(low, np.float32), (b,)),
+                  np.broadcast_to(np.asarray(high, np.float32), (b,)),
+                  np.broadcast_to(np.asarray(pixels, np.int64), (b,)),
+                  np.broadcast_to(np.asarray(periodic, bool), (b,)))
+        ids = None if block_ids is None else np.asarray(block_ids, np.int64)
+        return self._decode(payloads, np.asarray(bits, np.int64),
+                            np.full(b, n, np.int64),
+                            np.asarray(mins, np.int64), config, ids, dither,
+                            seed).reshape(b, n)

@@ -31,6 +31,7 @@ import numpy as np
 from minnow_torch.core import spec
 from minnow_torch.formats import boundary, minh, minp
 from minnow_torch.formats.boundary_device import DeviceBoundaryWriter
+from minnow_torch.formats.device_common import read_payloads
 from minnow_torch.parallel.distributed import gather_blocks
 from minnow_torch.parallel.pipeline import BlockEncoder
 
@@ -215,10 +216,8 @@ def dryrun_sharded_decode(devices) -> dict:
                 host = {**r.ints(["id"]), **r.floats(["x"])}
                 for c, name in ((0, "id"), (1, "x")):
                     idx = [r._block_idx(c, b) for b in range(r.blocks)]
-                    raw = [r.f.raw_block(i) for i in idx]
-                    payloads = [blk[0] for blk in raw]
-                    mins = np.asarray([blk[1] for blk in raw], np.int64)
-                    bits = np.asarray([blk[2] for blk in raw], np.int64)
+                    payloads, tab = read_payloads(r.f, idx)
+                    mins, bits = tab.mins, tab.bits
                     if name == "id":
                         dec = be.decode_int_blocks(payloads, mins, bits, m)
                         if not np.array_equal(dec.reshape(-1), host[name]):
@@ -226,7 +225,7 @@ def dryrun_sharded_decode(devices) -> dict:
                                                  "from the host reader")
                         out["id"] = dec
                         continue
-                    low, high, pixels, per = raw[0][4]
+                    low, high, pixels, per = tab.config
                     dec = be.decode_float_blocks(
                         payloads, mins, bits, low, high, pixels, m,
                         periodic=per, dither=mode, seed=11, block_ids=idx)

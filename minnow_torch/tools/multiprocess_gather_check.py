@@ -18,8 +18,10 @@ gathered streams, which must be byte-identical to a plain single-process
 host write of the whole catalog (the ordered multi-process writer
 contract, process-major global block order, ref
 go/block_index.go:16-23).  After a barrier every process decodes its own
-row-blocks from the shared file with ``decode_int_blocks`` and
-``decode_float_blocks`` and compares them bitwise with the host reader.
+row-blocks from the shared file -- the payloads of its int blocks and of
+its float blocks each from one read of their span -- with
+``decode_int_blocks`` and ``decode_float_blocks``, one call of each a
+row-block, and compares them bitwise with the host reader.
 
 ``--rows`` scales the 563-row catalog (a multiple of 563; default 563).
 ``--device=cuda`` (the default) puts every worker on the CUDA device,
@@ -29,9 +31,9 @@ the run, and the other workers are stopped.  The last line of output is
 one JSON object: sizes, seconds per stage and rank (host clock, after a
 device synchronize; ``wait`` is a barrier before the gather, so that
 ``gather`` holds no wait for the slowest encoder; ``read_back`` is the
-device decode of the rank's row-blocks, ``host_reader`` the host
-reader's decode of the same), and each rank's kernel launches on the
-path.
+device decode of the rank's row-blocks, its reads included,
+``host_reader`` the host reader's decode of the same), and each rank's
+kernel launches on the path and in its read-back.
 """
 
 from __future__ import annotations
@@ -166,6 +168,7 @@ def worker(rank: int, num: int, port: int, out_file: str, mode: str,
     import torch
 
     from minnow_torch.formats import minh
+    from minnow_torch.formats.device_common import read_payloads
     from minnow_torch.ops import decode, encode, selfcheck
     from minnow_torch.parallel import distributed
     from minnow_torch.parallel.pipeline import BlockEncoder
@@ -255,20 +258,25 @@ def worker(rank: int, num: int, port: int, out_file: str, mode: str,
     ok = True
     widths = set()
     t["read_back"] = t["host_reader"] = 0.0
+    launched = decode.K2_LAUNCHES, decode.K4_LAUNCHES
     try:
-        for g in mine:
+        t0 = clock()
+        # the rank's row-blocks are contiguous in the file: one read of
+        # the span of its int blocks, one of its float blocks
+        pay_i, tab_i = read_payloads(r.f, [r._block_idx(0, g) for g in mine])
+        pay_f, tab_f = read_payloads(r.f, [r._block_idx(c, g) for g in mine
+                                           for c in FLOAT_COLS])
+        t["read_back"] += clock() - t0
+        for k, g in enumerate(mine):
             n = sizes[g]
             t0 = clock()
-            raw_i = r.f.raw_block(r._block_idx(0, g))
-            dec_i = be.decode_int_blocks([raw_i[0]], [raw_i[1]], [raw_i[2]],
-                                         n)[0]
-            dec_f = []
-            for c in FLOAT_COLS:
-                raw_f = r.f.raw_block(r._block_idx(c, g))
-                lowp, highp, pixp, perp = raw_f[4]
-                dec_f.append(be.decode_float_blocks(
-                    [raw_f[0]], [raw_f[1]], [raw_f[2]], lowp, highp, pixp, n,
-                    periodic=perp, dither="none")[0])
+            dec_i = be.decode_int_blocks(pay_i[k:k + 1], tab_i.mins[k:k + 1],
+                                         tab_i.bits[k:k + 1], n)[0]
+            fs = slice(k * len(FLOAT_COLS), (k + 1) * len(FLOAT_COLS))
+            lowp, highp, pixp, perp = (a[fs] for a in tab_f.config)
+            dec_f = be.decode_float_blocks(
+                pay_f[fs], tab_f.mins[fs], tab_f.bits[fs], lowp, highp, pixp,
+                n, periodic=perp, dither="none")
             t1 = clock()
             host_i = r.int_block(g, ["id"])["id"]
             # the raw decode, before the reader's 10**x of a log column
@@ -278,9 +286,11 @@ def worker(rank: int, num: int, port: int, out_file: str, mode: str,
             ok = ok and np.array_equal(dec_i, host_i) and all(
                 np.array_equal(d.view(np.uint32), h.view(np.uint32))
                 for d, h in zip(dec_f, host_f))
-            widths.add(int(raw_i[2]))
+            widths.add(int(tab_i.bits[k]))
     finally:
         r.close()
+    read_back = {"K2": decode.K2_LAUNCHES - launched[0],
+                 "K4": decode.K4_LAUNCHES - launched[1]}
 
     banned = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "minnow_tpu"))
@@ -288,6 +298,7 @@ def worker(rank: int, num: int, port: int, out_file: str, mode: str,
         json.dump({"rank": rank, "ok": bool(ok), "blocks": len(mine),
                    "device": str(dev), "seconds": t, "bytes_sent": sent,
                    "int_widths": sorted(widths), "banned_modules": banned,
+                   "read_back_launches": read_back,
                    "launches": {"K1": encode.K1_LAUNCHES,
                                 "K2": decode.K2_LAUNCHES,
                                 "K3": encode.K3_LAUNCHES,

@@ -1,5 +1,5 @@
-"""Times of the float encode (K1, K5) and the float decode (K2) on one
-CUDA card, for one checkout or for two in turns.
+"""Times of the float encode (K1, K5), the float decode (K2) and the int
+unpack (K4) on one CUDA card, for one checkout or for two in turns.
 
     python3 minnow_torch/tools/time_encode.py [--reps N] [--root DIR]
     python3 minnow_torch/tools/time_encode.py --compare OTHER_CHECKOUT
@@ -16,14 +16,16 @@ library it built (``cuobjdump -sass`` from beside nvcc, under the
 function's mangled name), which do not move with the card.  It uses only
 what both generations of ``minnow_torch.ops.encode``
 have (``float_stats``, ``plan_float``, ``pack_float``, ``pack_float_q``,
-``encode_float_group``, ``decode.decode_float_group``), and K1's plan
-launch where there is one.
+``encode_float_group``, ``encode_int_group``, ``decode.decode_float_group``,
+``decode.decode_int_group``), and K1's plan launch where there is one.
 
 Shapes, all CUDA events, median of N after warm-up:
 
 * flagship: 4096 blocks x 2^17 elements, periodic, 250,000 pixels (18
   bits): each launch alone, the whole call, the ``reuse_q`` call, the host
-  plan on the host clock, and K2's ``uniform`` decode of K1's words;
+  plan on the host clock, K2's ``uniform`` decode of K1's words, and K4
+  on K3's words at 18 and at 54 bits (each checked to give K3's input
+  back);
 * text_to_minh: the 8 float columns of one row-block of 853,007 halos
   (two log columns, three periodic positions, three velocities);
 * minh_to_bnd: one position column of 512 ragged cells of 3,619..4,026;
@@ -177,6 +179,26 @@ def measure(reps):
         dec().view(torch.int32).to(torch.int64).sum())
     del words, w2d
     torch.cuda.empty_cache()
+
+    # K4 on K3's words at 18 and at 54 bits
+    for bits, lo in ((18, 1 << 53), (54, -(1 << 62))):
+        xi = torch.randint(0, 1 << bits, (b, n), generator=gen, device=dev,
+                           dtype=torch.int64) + lo
+        xi[:, 0], xi[:, 1] = lo, lo + (1 << bits) - 1
+        iwords, iplan = encode.encode_int_group(xi, lens)
+        if not (iplan.bits == bits).all():
+            raise AssertionError("K3 widths %s" % set(iplan.bits))
+        i2d = iwords.view(b, -1)
+        imins = torch.from_numpy(iplan.mins).to(dev)
+
+        def unpack():
+            return decode.decode_int_group(i2d, imins, bits, n)
+
+        if not torch.equal(unpack(), xi):
+            raise AssertionError("K4 at %d bits: not K3's input" % bits)
+        t["K4 at %d bits" % bits] = time_ms(unpack, reps)
+        del xi, iwords, i2d
+        torch.cuda.empty_cache()
     out["flagship (4096, 131072)"] = t
 
     for name, (xn, low, high, pixels, periodic, ln) in _batches(

@@ -18,7 +18,8 @@ import torch
 import chip_smoke
 from minnow_torch.cli import minh_to_bnd, text_to_minh
 from minnow_torch.core import spec
-from minnow_torch.formats import minh, minh_device
+from minnow_torch.formats import device_common, minh, minh_device, minp
+from minnow_torch.formats import minp_device
 from minnow_torch.ops import bitpack, codec, decode, encode, selfcheck
 from minnow_torch.ops import validate
 from minnow_torch.parallel.pipeline import BlockEncoder
@@ -355,6 +356,83 @@ def test_k4_matches_plain_at_every_width(dev, n):
         assert decode.K4_LAUNCHES == before + 1
         assert torch.equal(got, decode.decode_int_plain(wt, mt, bits, n)), \
             bits
+
+
+@pytest.mark.parametrize("kind", ["K2", "K4"])
+def test_ragged_sweep_matches_plain(dev, kind):
+    """``chip_smoke.ragged_sweep``'s column (widths 0..64, start bytes 0..3
+    mod 4, lengths 1 to 2^17 - 1, extreme minimums and pixel counts)
+    through the ragged entry, one launch a mode, against the plain
+    version on the same tensors."""
+    counter = "K2_LAUNCHES" if kind == "K2" else "K4_LAUNCHES"
+    before = getattr(decode, counter)
+    assert chip_smoke.check_ragged(dev, np.random.default_rng(21),
+                                   kind) == 0
+    assert getattr(decode, counter) == before + (3 if kind == "K2" else 1)
+
+
+@pytest.mark.parametrize("mode", list(codec.DITHER_MODES))
+def test_reads_launch_once_a_column_on_card(dev, tmp_path, mode):
+    """The source file of a 3,000-row catalog, its boundary layout (64
+    ragged cells) and a minp file read on the card: bitwise the host
+    reader, one K2 launch a Float column and one K4 launch an Int column,
+    one K2 launch a minp file; ``decode_*_blocks`` on three shares of the
+    card, one launch a share."""
+    src = write_catalog(tmp_path, n=3000)
+    bnd = tmp_path / "b.bnd.minh"
+    minh_to_bnd.convert_file(str(src), str(bnd), CELLS, BND, None)
+    for fname in (src, bnd):
+        r = minh.open(str(fname), dither=mode, seed=3)
+        try:
+            types = [c.type for c in r.columns]
+            before = decode.K2_LAUNCHES, decode.K4_LAUNCHES
+            got = {n: minh_device.read_column(r, n, dev) for n in r.names}
+            assert (decode.K2_LAUNCHES - before[0],
+                    decode.K4_LAUNCHES - before[1]) == (
+                types.count(minh.Float), types.count(minh.Int))
+            for n in r.names:
+                want = minh_device.read_column(r, n, None)
+                assert got[n].tobytes() == want.tobytes(), n
+        finally:
+            r.close()
+
+    rng = np.random.default_rng(4)
+    fname, m = str(tmp_path / "s.minh"), 500
+    w = minh.create(fname)
+    w.header(["x"], "", [minh.Column(type=minh.Float, low=0.0, high=250.0,
+                                     dx=0.001)])
+    w.geometry(250.0, 0, 0)
+    for k in range(7):
+        w.block([rng.uniform(0, 25.0 * (k + 1), m).astype(np.float32)])
+    w.close()
+    r = minh.open(fname, dither=mode, seed=3)
+    try:
+        ids = list(range(r.blocks))
+        payloads, tab = device_common.read_payloads(r.f, ids)
+        want = r.floats(["x"])["x"]
+    finally:
+        r.close()
+    before = decode.K2_LAUNCHES
+    dec = BlockEncoder([dev] * 3).decode_float_blocks(
+        payloads, tab.mins, tab.bits, *tab.config[:3], m,
+        periodic=tab.config[3], dither=mode, seed=3, block_ids=ids)
+    assert decode.K2_LAUNCHES == before + 3
+    assert dec.reshape(-1).tobytes() == want.tobytes()
+
+    hd = minp.Header(l=100.0, n_side=16, n_total=16 ** 3)
+    fname = str(tmp_path / "v.minp")
+    w = minp.Writer(fname)
+    w.header(hd, b"h", minp.Cell(0, 1, 2), 0.01, True)
+    w.vectors(rng.uniform(0, 99.9, (16 ** 3, 3)).astype(np.float32))
+    w.close()
+    r = minp.open(fname, dither=mode, seed=3)
+    try:
+        before = decode.K2_LAUNCHES
+        got = minp_device.read_vectors(r, dev).cpu().numpy()
+        assert decode.K2_LAUNCHES == before + 1
+        assert got.tobytes() == r.vectors().tobytes()
+    finally:
+        r.close()
 
 
 @pytest.mark.parametrize("mode", list(codec.DITHER_MODES))
