@@ -16,7 +16,10 @@ Phases, each of which raises at its first failure:
    blocks K1 does not certify beside valid ones, and ragged batches with
    lengths 1, 31, 32, 33, 2049 and 2^17 - 1, the plan launch also against
    the host's ``plan_float``; K2 float decode at widths 0..64 in the
-   three dither modes, K3 int pack at widths 1..64 with IDs above 2^53,
+   three dither modes; K3 int encode (its stats, plan and pack launches
+   and the whole call) at widths 0..64 with IDs above 2^53, and at 1, 18,
+   37, 54 and 64 bits on lengths 0, 1, 31, 32, 33, 2049 and 4097 with
+   garbage past each length, and -2^63 beside 2^63 - 1 in one block;
    K4 int unpack at widths 0..64 with minimums at -2^63 and 2^63 - 1 and
    deltas of 2^width - 1; K2 and K4 also through their ragged entry on
    one column of widths 0..64 at start bytes 0..3 (mod 4), lengths 1, 31,
@@ -26,9 +29,10 @@ Phases, each of which raises at its first failure:
    B10 ``decode_int_group`` with zero minimums and B11 ``pack_batch`` at
    widths 1..32 (also against ``spec.pack_bits``).
    Then each kernel at the flagship block shape (4096 blocks x 2^17
-   elements, 18 bits; K4 also at 54 bits), timed (CUDA events, median of
-   7 after warm-up) beside its plain version; K1's three launches, the
-   stats launch storing pixels, and K5 apart.  The path of K5,
+   elements, 18 bits; K3 and K4 also at 54 bits), timed (CUDA events,
+   median of 7 after warm-up) beside its plain version; K1's three
+   launches, the stats launch storing pixels, K5, and K3's three launches
+   (its stats launch beside ``torch.aminmax``) apart.  The path of K5,
    ``encode_float_group(reuse_q=True)``, runs once there with the launch
    counts at zero around it, and its words must equal K1's.
    Last (the sweep is mostly ``core.spec`` on the host, and the card's
@@ -132,14 +136,15 @@ The three self-check families are certified once right after phase 3's
 sweeps, outside every timed region and every counted run.  The runs of
 phases 4, 5, 6 and 7 and of K5's path in phase 3 each start the launch
 counts at zero and read them at their end, as do the wide-column run of
-phase 4 and the dry runs of phase 7.  The last three lines are the
-nvidia-smi line, a JSON line with each kernel's numbers (launches: the
-sum over those runs, phase 7's summed over its ranks; ``bound_ms``: the
-least time the card could take for the flagship call, from its bytes and
-operations), and ``{"ok": true, "device":
-...}``.  Without a CUDA device, or outside a checkout of the repository,
-it fails before printing any of them.  Files go to ``build/chip_smoke/``
-in the checkout.
+phase 4 and the dry runs of phase 7; in each of those runs, as in each
+worker, K3's stats and plan launches must be as many as its packs.  The
+last three lines are the nvidia-smi line, a JSON line with each kernel's
+numbers (K3's three launches apart; launches: the sum over those runs,
+phase 7's summed over its ranks; ``bound_ms``: the least time the card
+could take for the flagship call, from its bytes and operations), and
+``{"ok": true, "device": ...}``.  Without a CUDA device, or outside a
+checkout of the repository, it fails before printing any of them.  Files
+go to ``build/chip_smoke/`` in the checkout.
 
 The host side of every comparison is the port's own host mode (the same
 CLI without ``--device``, the ``formats`` readers on numpy), which the
@@ -179,7 +184,7 @@ from minnow_torch.parallel.pipeline import BlockEncoder  # noqa: E402
 from minnow_torch.tools import dryrun  # noqa: E402
 from minnow_torch.tools import multiprocess_gather_check  # noqa: E402
 from minnow_torch.utils.device import (card_info, cuda_device,  # noqa: E402
-                                       time_ms)
+                                       graph_ms, time_ms)
 from minnow_torch.utils.profiling import StageTimer  # noqa: E402
 
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -187,7 +192,8 @@ FLAGSHIP = (4096, 1 << 17)     # blocks x elements: the JAX bench's shape
 CHUNK = 256                    # blocks per plain-version chunk
 ROWS = 1_000_000               # catalog rows of the main paths
 CELLS, BOUNDARY = 8, 5.0       # minh_to_bnd of phase 5: 512 cells at L 250
-KERNELS = ("K1", "K2", "K3", "K4", "K5")
+# K3 counts its packs; its stats and plan launches count apart
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K3 stats", "K3 plan")
 # phase 6: an n_side^3-particle snapshot in a box of side L, converted at
 # file_cells 2 and sub_cells 8 with position and velocity steps dx, dv
 SNAP_SIDE, SNAP_L, SNAP_FILES = 256, 250.0, 8
@@ -201,7 +207,8 @@ WIDE_SHAPES = ((12, 200), (64, 1 << 17))
 WIDE_ROWS = 200_000
 # phase 9: the time limit of the cuda tests' process
 TESTS_LIMIT = 420
-# launches of one CUDA graph that times a ragged decode alone
+# launches of one CUDA graph that times a ragged decode, or K3's three
+# launches, alone
 GRAPH_LAUNCHES = 20
 
 
@@ -433,7 +440,13 @@ def check_k2(dev, rng):
     return err
 
 
-def check_k3(dev, rng):
+def k3_batches(rng):
+    """K3's cases as numpy ``(x, lens)``: widths 1..64 at n = 3,001 (IDs
+    above 2^53, minimums down to -2^63, every seventh block 11 shorter);
+    at 1, 18, 37, 54 and 64 bits, blocks of lengths 0, 1, 31, 32, 33,
+    2,049 and 4,097 whose padding holds random words, the empty ones
+    too; and one block holding -2^63 and 2^63 - 1 (width 64) beside a
+    constant one (width 0)."""
     n = 3001
     rows = []
     for bits in range(1, 65):
@@ -442,18 +455,121 @@ def check_k3(dev, rng):
                          dtype=np.uint64)
         d[0], d[1] = 0, (1 << bits) - 1
         rows.append(d.view(np.int64) + np.int64(lo))
-    x = torch.from_numpy(np.stack(rows)).to(dev)
-    lens = torch.full((64,), n, dtype=torch.int64, device=dev)
+    lens = np.full(64, n, np.int64)
     lens[::7] = n - 11
-    words, plan = encode.encode_int_group(x, lens)
-    if list(plan.bits) != list(range(1, 65)):
-        raise AssertionError("K3 sweep widths: %s" % list(plan.bits))
-    err = int_err(words, encode.delta_pack_int_plain(x, lens, plan))
-    if err:
-        raise AssertionError("K3 sweep: max err %d" % err)
-    log("K3 sweep: widths 1..64 at n=%d (IDs above 2^53), bitwise equal "
-        "to the plain version" % n)
-    return err
+    out = [(np.stack(rows), lens)]
+    n = 4097
+    lens = np.array([0, 1, 31, 32, 33, 2049, 4097, 0], np.int64)
+    for bits in (1, 18, 37, 54, 64):
+        x = rng.integers(-(1 << 63), (1 << 63) - 1, (len(lens), n),
+                         dtype=np.int64, endpoint=True)
+        lo = -(1 << 63) if bits == 64 else (1 << 53) + 7
+        for i, m in enumerate(lens):
+            d = rng.integers(0, (1 << 64) - 1 if bits == 64 else 1 << bits,
+                             m, dtype=np.uint64)
+            d[:2] = (0, (1 << bits) - 1)[:m]
+            x[i, :m] = d.view(np.int64) + np.int64(lo)
+        out.append((x, lens))
+    x = np.full((2, 5), 42, np.int64)
+    x[0, 1], x[0, 3] = -(1 << 63), (1 << 63) - 1
+    out.append((x, np.array([5, 5], np.int64)))
+    return out
+
+
+def hold_k3(x, lens, what, capacity=None):
+    """K3 on ``x`` and ``lens`` (on the card) against its plain versions
+    on the same tensors, bitwise: the stats launch's rows, the plan
+    launch's device plan (also read back against the call's plan) and the
+    whole call's words.  Returns the call's ``(words, plan)``."""
+    stats = encode.int_stats(x, lens)
+    dplan = encode.int_plan(stats, lens)
+    want = encode.int_plan_plain(stats, lens)
+    words, plan = encode.encode_int_group(x, lens, capacity)
+    err = max(int_err(stats, encode.int_stats_plain(x, lens)),
+              int_err(dplan, want),
+              int_err(words, encode.delta_pack_int_plain(x, lens, plan)))
+    if err or not plan_eq(plan, encode.read_plan(want)):
+        raise AssertionError("K3 %s at %s: stats, plan or words differ from "
+                             "the plain versions (max err %d)"
+                             % (what, tuple(x.shape), err))
+    return words, plan
+
+
+def k3_timed(x, lens, plan):
+    """K3 at a path's shape: the call (CUDA events, median of 7), its
+    three launches alone (``GRAPH_LAUNCHES`` encodes captured in one CUDA
+    graph, a replay over their number), the plain versions' route (median
+    of 3) and the bound by the bytes the call must move (x's live elements
+    read once, the words written once), in ms."""
+    def plain():
+        p = encode.read_plan(encode.int_plan_plain(
+            encode.int_stats_plain(x, lens), lens))
+        return encode.delta_pack_int_plain(x, lens, p)
+
+    live, total = int(lens.sum()), plan.total
+    return {"call": time_ms(lambda: encode.encode_int_group(x, lens)),
+            "kernels": graph_ms(lambda: encode._launch_int_encode(
+                x, lens, total), GRAPH_LAUNCHES),
+            "plain": time_ms(plain, reps=3, warmup=1),
+            "bound": bound(live * 8 + total * 4, 6 * live)["bound_ms"]}
+
+
+def float_timed(x, params, lens, plan):
+    """K1 and K5 at a path's shape, alone: K1's three launches, and K5's
+    pack from the pixels a stats launch stored, each ``GRAPH_LAUNCHES``
+    times over in one CUDA graph, a replay over their number; beside the
+    bound by the bytes of x's live elements and of the words (ms)."""
+    total = plan.total
+    q = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    dplan = encode._launch_plan(
+        encode._launch_stats(x, params, lens, q), params, lens)
+
+    def k1():
+        stats = encode._launch_stats(x, params, lens, None)
+        return encode._launch_pack(
+            x, params, lens, encode._launch_plan(stats, params, lens), total)
+
+    live = int(lens.sum())
+    return {"K1": graph_ms(k1, GRAPH_LAUNCHES),
+            "K5": graph_ms(lambda: encode._launch_pack(
+                q, params, lens, dplan, total), GRAPH_LAUNCHES),
+            "bound": bound(live * 4 + total * 4, 16 * live)["bound_ms"]}
+
+
+def log_float(what, rows):
+    log("K1 and K5 at %s, alone, ms (K1's three launches and K5's pack, "
+        "each in a graph of %d; bound by bytes at 3.35 TB/s): %s"
+        % (what, GRAPH_LAUNCHES, "; ".join(
+            "%s: K1 %.4f, K5 %.4f, bound %.5f"
+            % (label, t["K1"], t["K5"], t["bound"]) for label, t in rows)))
+
+
+def log_k3(what, rows):
+    log("K3 at %s, ms (the call: CUDA events, median of 7; its three "
+        "launches alone in a graph of %d encodes; the plain versions' route "
+        "median of 3; bound by bytes at 3.35 TB/s): %s"
+        % (what, GRAPH_LAUNCHES, "; ".join(
+            "%s: call %.4f, kernels %.4f, plain %.4f, bound %.5f"
+            % (label, t["call"], t["kernels"], t["plain"], t["bound"])
+            for label, t in rows)))
+
+
+def check_k3(dev, rng):
+    """K3's three launches and the whole call on :func:`k3_batches`,
+    against the plain versions; every width 0..64 must come up."""
+    widths = set()
+    for x, lens in k3_batches(rng):
+        _, plan = hold_k3(torch.from_numpy(x).to(dev),
+                          torch.from_numpy(lens).to(dev), "sweep")
+        widths.update(int(b) for b in plan.bits)
+    if widths != set(range(65)):
+        raise AssertionError("K3 sweep: widths not seen %s"
+                             % sorted(set(range(65)) - widths))
+    log("K3 sweep: widths 0..64 at n=3001 (IDs above 2^53); 1, 18, 37, 54 "
+        "and 64 bits on lengths 0, 1, 31, 32, 33, 2049 and 4097 with "
+        "garbage past each length; -2^63 beside 2^63 - 1: the stats rows, "
+        "the device plan and the words bitwise equal to the plain versions")
+    return 0
 
 
 def same_ints(got, want, what):
@@ -713,29 +829,31 @@ def check_tile_entries(dev, rng):
 PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, library_ms=None):
     """The least time the card could take for a kernel's work: the bytes
     it must move (each input read once, each output written once) over
     the memory rate, or its arithmetic operations on these inputs over
-    the float32 rate, whichever is larger; and that no single PyTorch call
-    computes the same function (quantize, recentre, min-subtract and
-    bit-pack at a per-block width, or the inverse), so there is no
-    library time."""
+    the float32 rate, whichever is larger; and ``library_ms``, the time of
+    the one PyTorch call that computes the same function, where there is
+    one (none quantizes, recentres, min-subtracts and bit-packs at a
+    per-block width, or does the inverse)."""
     by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 def reset_counts():
     encode.K1_LAUNCHES = encode.K3_LAUNCHES = encode.K5_LAUNCHES = 0
+    encode.K3_STATS_LAUNCHES = encode.K3_PLAN_LAUNCHES = 0
     decode.K2_LAUNCHES = decode.K4_LAUNCHES = 0
 
 
 def counts():
     return {"K1": encode.K1_LAUNCHES, "K2": decode.K2_LAUNCHES,
             "K3": encode.K3_LAUNCHES, "K4": decode.K4_LAUNCHES,
-            "K5": encode.K5_LAUNCHES}
+            "K5": encode.K5_LAUNCHES, "K3 stats": encode.K3_STATS_LAUNCHES,
+            "K3 plan": encode.K3_PLAN_LAUNCHES}
 
 
 def chunks(b):
@@ -926,35 +1044,10 @@ def flagship(dev, results):
 
     xi = torch.randint(0, 1 << 18, (b, n), generator=gen, device=dev,
                        dtype=torch.int64) + (1 << 53)
-    words, plan = encode.encode_int_group(xi, lens)
-    if not (plan.bits == 18).all():
-        raise AssertionError("K3 flagship: widths %s" % set(plan.bits))
-    err3 = 0
-    for s in chunks(b):
-        w = encode.delta_pack_int_plain(xi[s], lens[s],
-                                        chunk_plan(plan, s, row))
-        err3 = max(err3, int_err(w, words[s.start * row:s.stop * row]))
-    if err3:
-        raise AssertionError("K3 flagship: words differ (%d)" % err3)
-    ms = time_ms(lambda: encode.delta_pack_int(xi, lens, plan))
-
-    def plain_pack():
-        for s in chunks(b):
-            encode.delta_pack_int_plain(xi[s], lens[s],
-                                        chunk_plan(plan, s, row))
-
-    plain_ms = time_ms(plain_pack, reps=3, warmup=1)
-    gb8 = b * n * 8 / 1e9
-    results["K3"].update(ms=ms, plain_ms=plain_ms,
-                         max_abs_err=max(results["K3"]["max_abs_err"], err3),
-                         **bound(xi.numel() * 8 + words.numel() * 4,
-                                 4 * b * n))
-    log("K3 flagship int64 pack: kernel %.3f ms (%.1f GB/s of int64), "
-        "plain %.3f ms (%.1f GB/s); words bitwise equal"
-        % (ms, gb8 / ms * 1e3, plain_ms, gb8 / plain_ms * 1e3))
-
+    words, plan = k3_flagship(xi, lens, 18, results)
     # K4 reads K3's words back: a round trip to xi, bitwise
-    k4_flagship(xi, words.view(b, row), plan.mins, 18, results)
+    k4_flagship(xi, words.view(b, int(plan.offsets[1])), plan.mins, 18,
+                results)
     del xi, words
     torch.cuda.empty_cache()
 
@@ -963,13 +1056,81 @@ def flagship(dev, results):
                        dtype=torch.int64) - (1 << 62)
     xw[:, 0] = -(1 << 62)
     xw[:, 1] = -(1 << 62) + (1 << 54) - 1
-    words, plan = encode.encode_int_group(xw, lens)
-    if not (plan.bits == 54).all():
-        raise AssertionError("K3 at 54 bits: widths %s" % set(plan.bits))
-    k4_flagship(xw, words.view(b, plan.offsets[1]), plan.mins, 54, results)
+    words, plan = k3_flagship(xw, lens, 54, results)
+    k4_flagship(xw, words.view(b, int(plan.offsets[1])), plan.mins, 54,
+                results)
     del xw, words
     torch.cuda.empty_cache()
     return reuse_path
+
+
+def k3_flagship(x, lens, bits, results):
+    """K3 at 4096 x 2^17, every block at ``bits``: its stats, plan and
+    pack launches and the whole call, each held against its plain version
+    on the same tensors, bitwise (the stats and the pack chunk by chunk:
+    their int64 temporaries would not fit at once), and timed, CUDA
+    events, median of 7 (plain median of 3); beside the stats launch
+    ``torch.aminmax`` over the rows, the one PyTorch call that computes it
+    where every block is whole, as here.  The 18-bit numbers go into the
+    kernels line.  Returns the call's ``(words, plan)``."""
+    b, n = x.shape
+    words, plan = encode.encode_int_group(x, lens)
+    if not (plan.bits == bits).all():
+        raise AssertionError("K3 flagship: widths %s" % set(plan.bits))
+    row = int(plan.offsets[1])
+    stats = encode.int_stats(x, lens)
+    dplan = encode.int_plan(stats, lens)
+    err = int_err(dplan, encode.int_plan_plain(stats, lens))
+    if err or not plan_eq(encode.read_plan(dplan), plan):
+        raise AssertionError("K3 flagship: the plan launch differs from its "
+                             "plain version or from the call's plan")
+
+    def plain_stats():
+        return torch.cat([encode.int_stats_plain(x[s], lens[s])
+                          for s in chunks(b)])
+
+    def plain_pack():
+        return torch.cat([encode.delta_pack_int_plain(
+            x[s], lens[s], chunk_plan(plan, s, row)) for s in chunks(b)])
+
+    err = max(int_err(stats, plain_stats()), int_err(words, plain_pack()))
+    if err:
+        raise AssertionError("K3 flagship at %d bits: stats or words differ "
+                             "(%d)" % (bits, err))
+    total = plan.total
+    t = {"stats": time_ms(lambda: encode.int_stats(x, lens)),
+         "plan": time_ms(lambda: encode.int_plan(stats, lens)),
+         "pack": time_ms(lambda: encode._launch_int_pack(x, lens, dplan,
+                                                         total)),
+         "call": time_ms(lambda: encode.encode_int_group(x, lens)),
+         "torch.aminmax": time_ms(lambda: torch.aminmax(x, dim=1)),
+         "stats plain": time_ms(plain_stats, reps=3, warmup=1),
+         "plan plain": time_ms(lambda: encode.int_plan_plain(stats, lens),
+                               reps=3, warmup=1),
+         "pack plain": time_ms(plain_pack, reps=3, warmup=1)}
+    x_bytes, w_bytes = x.numel() * 8, words.numel() * 4
+    # bytes: x and the words, and for each block the lens, stats and plan
+    # rows a launch reads or writes
+    bounds = {"stats": bound(x_bytes + (1 + 2) * 8 * b, 2 * b * n,
+                             t["torch.aminmax"]),
+              "plan": bound((2 + 1 + encode.PLAN_ROWS) * 8 * b + 16, 8 * b),
+              "pack": bound(x_bytes + w_bytes + (1 + 3) * 8 * b, 4 * b * n),
+              "call": bound(x_bytes + w_bytes, 6 * b * n)}
+    if bits == 18:
+        for key, launch in (("K3 stats", "stats"), ("K3 plan", "plan"),
+                            ("K3", "pack")):
+            results[key].update(ms=t[launch], plain_ms=t[launch + " plain"],
+                                **bounds[launch])
+    gb8 = b * n * 8 / 1e9
+    log("K3 flagship %dx%d at %d bits, ms (CUDA events, median of 7; plain "
+        "median of 3): %s; the call %.1f GB/s of int64, %.1f %% of its "
+        "bound %.3f ms (x once and the words); stats, device plan and "
+        "words bitwise equal to the plain versions"
+        % (b, n, bits, ", ".join("%s %.3f" % kv for kv in t.items()),
+           gb8 / t["call"] * 1e3, 100 * bounds["call"]["bound_ms"]
+           / t["call"], bounds["call"]["bound_ms"]))
+    del stats, dplan
+    return words, plan
 
 
 def k4_flagship(x, w2d, mins_np, bits, results):
@@ -1101,9 +1262,7 @@ def check_main_shapes(dev, n, rng):
                               rng.integers(3e9, 4e9, n)),
                      rng.integers(0, 6, n)])
     it = torch.from_numpy(ints).to(dev)
-    iwords, iplan = encode.encode_int_group(it, lens[:2])
-    err = max(err, int_err(iwords, encode.delta_pack_int_plain(
-        it, lens[:2], iplan)))
+    iwords, iplan = hold_k3(it, lens[:2], "at the main path's shape")
     icolumns = []  # K4's arguments for each int column, as read_ints gives
     for i in range(2):
         nw = bitpack.words_per_block(int(iplan.bits[i]), n)
@@ -1132,9 +1291,6 @@ def check_main_shapes(dev, n, rng):
          "K1 stats": time_ms(lambda: encode.float_stats(xt, params, lens)),
          "K1 pack": time_ms(lambda: encode.pack_float(xt, params, lens,
                                                       plan)),
-         "K3 call": time_ms(lambda: encode.encode_int_group(it, lens[:2])),
-         "K3 pack": time_ms(lambda: encode.delta_pack_int(it, lens[:2],
-                                                          iplan)),
          "K2 uniform, 8 columns": time_ms(decode_all),
          "K4, 2 columns": time_ms(lambda: [decode.decode_int_group(*c)
                                            for c in icolumns]),
@@ -1142,6 +1298,10 @@ def check_main_shapes(dev, n, rng):
                                                  for c in icolumns])}
     log("main-path shapes, ms (CUDA events, median of 7): %s" % ", ".join(
         "%s %.4f" % kv for kv in t.items()))
+    log_k3("the main path's shape", [("(2, %d) at widths %s" % (
+        n, iplan.bits.tolist()), k3_timed(it, lens[:2], iplan))])
+    log_float("the main path's shape", [("(8, %d)" % n, float_timed(
+        xt, params, lens, plan))])
 
 
 def main_path(dev):
@@ -1299,7 +1459,7 @@ def wide_column_path(dev, work, rows):
                            "--device"])
         read_wide_columns(held, dev)
         printed(inspect_minh.main, [held, "--device"])
-    need({k: len(seen.get(k, ())) for k in KERNELS}, KERNELS[:4],
+    need({k: len(seen.get(k, ())) for k in KERNELS[:4]}, KERNELS[:4],
          "the wide column's path under held_to_plain")
     log_held("wide column's shapes", seen)
 
@@ -1417,11 +1577,19 @@ def check_read_ints(fname, dev):
 
 
 def need(launches, kernels, what):
-    """Raise unless each of ``kernels`` was launched."""
+    """Raise unless each of ``kernels`` was launched, and, where
+    ``launches`` counts K3's stats and plan launches, unless every int
+    encode was K3's three launches: as many of each as packs (the paths
+    pack by no host plan)."""
     missing = [k for k in kernels if launches[k] < 1]
     if missing:
         raise AssertionError("kernels %s never launched: %s"
                              % (what, missing))
+    k3 = [launches[k] for k in ("K3 stats", "K3 plan", "K3")
+          if k in launches]
+    if len(set(k3)) > 1:
+        raise AssertionError("%s: K3's stats, plan and pack launches %s "
+                             "differ" % (what, k3))
 
 
 def read_all(fname, device, dither="uniform", seed=3):
@@ -1446,14 +1614,14 @@ def held_to_plain(seen):
     """While it is open, every call the host layers make to a kernel's
     entry also runs the plain version on the same tensors and raises
     unless the two are bitwise equal: ``encode.start_float_group`` (K1:
-    its stats rows, its plan and its words), ``encode.encode_int_group``
-    (K3), ``decode.decode_float_ragged`` (K2) and
+    its stats rows, its plan and its words), ``encode.start_int_group``
+    (K3: the same three), ``decode.decode_float_ragged`` (K2) and
     ``decode.decode_int_ragged`` (K4), the one entry of each decode kernel
     (``decode_*_group`` build a table and call them).  ``seen`` gathers
     each call's shape by kernel.  It holds the kernels at whatever shapes
     a path gives them: a path runs under it once before its counted run,
     so none of these launches is counted."""
-    real = (encode.start_float_group, encode.encode_int_group,
+    real = (encode.start_float_group, encode.start_int_group,
             decode.decode_float_ragged, decode.decode_int_ragged)
 
     def start_float_group(x, params, lens, reuse_q=False, capacity=None):
@@ -1478,14 +1646,25 @@ def held_to_plain(seen):
         seen.setdefault("K1", []).append(tuple(x.shape))
         return pending
 
-    def encode_int_group(x, lens, stats=None):
-        words, plan = real[1](x, lens, stats)
+    def start_int_group(x, lens, capacity=None):
+        pending = real[1](x, lens, capacity)
+        if 0 in x.shape:
+            return pending
+        words, plan = encode.finish_int_group(pending)
+        stats = encode.int_stats_plain(x, lens)
+        err = int_err(encode.int_stats(x, lens), stats)
+        dplan = encode.int_plan_plain(stats, lens)
+        if err or not plan_eq(plan, encode.read_plan(dplan)):
+            raise AssertionError("K3 at %s: stats (max err %d) or plan "
+                                 "differ from the plain versions"
+                                 % (tuple(x.shape), err))
         err = int_err(words, encode.delta_pack_int_plain(x, lens, plan))
         if err:
-            raise AssertionError("K3 at %s: max err %d against the plain "
-                                 "version" % (tuple(x.shape), err))
+            raise AssertionError("K3 at %s: words differ from the plain "
+                                 "version's, max err %d"
+                                 % (tuple(x.shape), err))
         seen.setdefault("K3", []).append(tuple(x.shape))
-        return words, plan
+        return pending
 
     def shape(table):
         """(blocks, elements, narrowest bits, widest bits) of a table."""
@@ -1507,13 +1686,13 @@ def held_to_plain(seen):
         return got
 
     encode.start_float_group = start_float_group
-    encode.encode_int_group = encode_int_group
+    encode.start_int_group = start_int_group
     decode.decode_float_ragged = decode_float_ragged
     decode.decode_int_ragged = decode_int_ragged
     try:
         yield seen
     finally:
-        (encode.start_float_group, encode.encode_int_group,
+        (encode.start_float_group, encode.start_int_group,
          decode.decode_float_ragged, decode.decode_int_ragged) = real
 
 
@@ -1582,11 +1761,7 @@ def ragged_timed(dev, span, col, what, mode="uniform", want=None,
     n = s.table.total
     moved = sum(t.numel() * t.element_size() for t in tensors
                 if t is not None) + n * out_bytes
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        kept = [run() for _ in range(GRAPH_LAUNCHES)]
-    kernel_ms = time_ms(graph.replay) / GRAPH_LAUNCHES
-    del graph, kept
+    kernel_ms = graph_ms(run, GRAPH_LAUNCHES)
     return ("%s (%d blocks, %d elements, widths %d..%d, %d bytes in)"
             % (what, len(col.lens), n, col.bits.min(), col.bits.max(),
                src.numel() * 4),
@@ -1607,8 +1782,10 @@ def check_boundary_shapes(dev, rng):
     """Each kernel against its plain version at the shapes phase 5 gives
     it, and timed there.  K1 and K3 take one column of 512 ragged cells,
     as ``DeviceBoundaryWriter`` batches them: 3,619..4,026 rows, zeros
-    beyond each cell's length, one empty cell.  K2 and K4 take that column
-    whole, one launch, as the read gives it to them: the writer's payloads
+    beyond each cell's length, one empty cell (K3 on the id, pid and
+    num_prog columns and on ids spread over 54 bits).  K2 and K4 take
+    that column whole, one launch, as the read gives it to them: the
+    writer's payloads
     back to back as the file holds them (a round trip for K4), and K4 also
     a column of random bytes at the int widths of the boundary file (1, 3,
     20 and 54 bits)."""
@@ -1621,6 +1798,7 @@ def check_boundary_shapes(dev, rng):
     side = 250.0 / CELLS
     t = []  # (what, ms)
     rows = []  # ragged_timed's
+    floats = []  # float_timed's
 
     def timed(what, fn, **kw):
         t.append((what, time_ms(fn, **kw)))
@@ -1664,26 +1842,24 @@ def check_boundary_shapes(dev, rng):
         timed("K1 call, %s" % name,
               lambda: encode.encode_float_group(xt, params, lens))
         timed("plain", plain_enc, reps=3, warmup=1)
+        floats.append((name, float_timed(xt, params, lens, plan)))
 
     # int columns: id (2^53 + 1 + 20 bits), pid (-1 or an ID), num_prog
     ids = (1 << 53) + 1 + rng.integers(0, ROWS, (b, width))
     pid = np.where(rng.random((b, width)) < 0.8, -1, ids)
+    k3 = []  # k3_timed's
+    wide = (1 << 53) + 1 + rng.integers(0, 1 << 54, (b, width))
     for name, v in (("id", ids), ("pid", pid),
-                    ("num_prog", rng.integers(0, 6, (b, width)))):
+                    ("num_prog", rng.integers(0, 6, (b, width))),
+                    ("id at 54 bits", wide)):
         it = torch.from_numpy(np.where(mask, v, 0)).to(dev)
-        iwords, iplan = encode.encode_int_group(it, lens)
-        err = int_err(iwords, encode.delta_pack_int_plain(it, lens, iplan))
-        if err:
-            raise AssertionError("K3 at 512 ragged cells, %s: max err %d"
-                                 % (name, err))
-        span, col = file_column(iwords, iplan, lens_np)
-        rows.append(ragged_timed(dev, span, col, "K4, %s" % name,
-                                 want=it[torch.from_numpy(mask).to(dev)]))
-        timed("K3 call, %s at %s bits"
-              % (name, sorted(set(iplan.bits.tolist()))),
-              lambda: encode.encode_int_group(it, lens))
-        timed("plain", lambda: encode.delta_pack_int_plain(it, lens, iplan),
-              reps=3, warmup=1)
+        iwords, iplan = hold_k3(it, lens, "at 512 ragged cells, " + name)
+        if name != "id at 54 bits":
+            span, col = file_column(iwords, iplan, lens_np)
+            rows.append(ragged_timed(dev, span, col, "K4, %s" % name,
+                                     want=it[torch.from_numpy(mask).to(dev)]))
+        k3.append(("%s at %s bits" % (name, sorted(set(iplan.bits.tolist()))),
+                   k3_timed(it, lens, iplan)))
     widths = np.array([(1, 3, 20, 54)[i % 4] for i in range(b)], np.int64)
     nbytes = (widths * lens_np + 7) // 8
     start = np.concatenate([np.zeros(1, np.int64), np.cumsum(nbytes)[:-1]])
@@ -1692,15 +1868,18 @@ def check_boundary_shapes(dev, rng):
         device_common.Blocks(start, widths, lens_np.astype(np.int64),
                              ids[:, 0].copy(), None, np.arange(b)),
         "K4, random bytes"))
-    log("boundary-path shapes: K1 (512, %d) and K3 (512, %d), cells of "
-        "%d..%d rows and one empty; K2 (three modes) and K4 on each column "
-        "of 512 cells, one launch: bitwise equal to the plain versions, K4 "
-        "to K3's input" % (width, width, lens_np[lens_np > 0].min(), width))
+    log("boundary-path shapes: K1 (512, %d) and K3 (512, %d; its stats, "
+        "plan and words), cells of %d..%d rows and one empty; K2 (three "
+        "modes) and K4 on each column of 512 cells, one launch: bitwise "
+        "equal to the plain versions, K4 to K3's input"
+        % (width, width, lens_np[lens_np > 0].min(), width))
     log("boundary-path shapes, ms (CUDA events, median of 7; the plain "
-        "versions of K1 and K3 median of 3; each 'plain' is the plain "
-        "version of the entry before it): %s"
-        % ", ".join("%s %.4f" % kv for kv in t))
+        "version of K1 median of 3; each 'plain' is the plain version of "
+        "the entry before it): %s" % ", ".join("%s %.4f" % kv for kv in t))
     log_ragged("boundary-path columns", rows)
+    log_k3("the boundary path's shapes, (512, %d) ragged" % width, k3)
+    log_float("the boundary path's shapes, (512, %d) ragged" % width,
+              floats)
 
 
 def boundary_path(dev):
@@ -1860,7 +2039,7 @@ def check_snapshot_shapes(dev, gadget):
     ``read_vectors`` gives it the blocks of a file.  The blocks are the
     converter's own (``snapshot.Grid`` of the fileset)."""
     grid = snapshot.Grid(lgadget2.LGadget2Snapshot(gadget), FILE_CELLS)
-    t, rows = [], []
+    t, rows, floats = [], [], []
     for kind, vec, dx, periodic in (("x", grid.read_x(0), SNAP_DX, True),
                                     ("v", grid.read_v(0), SNAP_DV, False)):
         blocks = minp.split_sub_cells(vec, SUB_CELLS)[:, :, 0]
@@ -1903,6 +2082,8 @@ def check_snapshot_shapes(dev, gadget):
         t += [("K1 call, %s" % kind,
                time_ms(lambda: encode.encode_float_group(xt, params, lens))),
               ("plain", time_ms(plain_enc, reps=3, warmup=1))]
+        floats.append(("the %s axis, (%d, %d)" % (kind, b, n),
+                       float_timed(xt, params, lens, plan)))
         log("snapshot shapes, %s: K1 (%d, %d), widths %s (blocks %s), K2 "
             "on the whole axis, one launch, in three modes: bitwise equal to "
             "the plain versions" % (kind, b, n, widths.tolist(), per.tolist()))
@@ -1910,6 +2091,7 @@ def check_snapshot_shapes(dev, gadget):
         "of K1 median of 3; each 'plain' is the plain version of the entry "
         "before it): %s" % ", ".join("%s %.4f" % kv for kv in t))
     log_ragged("snapshot axes", rows)
+    log_float("the snapshot path's shapes", floats)
 
 
 def snapshot_path(dev):
@@ -2040,6 +2222,7 @@ def check_multiprocess_shapes(dev):
     blocks = multiprocess_gather_check.make_catalog(MP_ROWS)
     counts = multiprocess_gather_check.owner_counts(MP_PROCS)
     t = []
+    k3 = []  # k3_timed's
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -2076,11 +2259,10 @@ def check_multiprocess_shapes(dev):
             cols.append((col, keys))
 
         it, ilt = put(ib), put(ilens)
-        iwords, iplan = encode.encode_int_group(it, ilt)
-        err = int_err(iwords, encode.delta_pack_int_plain(it, ilt, iplan))
-        if err or iplan.bits.min() <= 32:
-            raise AssertionError("K3 at rank %d's shape: max err %d, widths "
-                                 "%s" % (rank, err, iplan.bits))
+        iwords, iplan = hold_k3(it, ilt, "at rank %d's shape" % rank)
+        if iplan.bits.min() <= 32:
+            raise AssertionError("K3 at rank %d's shape: widths %s"
+                                 % (rank, iplan.bits))
         icols = []
         for i, n in enumerate(ilens):
             nw = bitpack.words_per_block(int(iplan.bits[i]), int(n))
@@ -2104,10 +2286,6 @@ def check_multiprocess_shapes(dev):
         t += [("K1 call, %s" % shape,
                time_ms(lambda: encode.encode_float_group(xt, params, lens))),
               ("plain", time_ms(plain_enc, reps=3, warmup=1)),
-              ("K3 call, (%d, %d) at %d bits" % (*it.shape, icol[2]),
-               time_ms(lambda: encode.encode_int_group(it, ilt))),
-              ("plain", time_ms(lambda: encode.delta_pack_int_plain(
-                  it, ilt, iplan), reps=3, warmup=1)),
               ("K2 none, (1, %d) at %d bits" % (col[4], col[3]),
                time_ms(lambda: decode.decode_float_group(*col, "none",
                                                          *keys))),
@@ -2121,10 +2299,13 @@ def check_multiprocess_shapes(dev):
             "block alone: bitwise equal to the plain versions, K4 to K3's "
             "input" % (rank, shape, plan.bits.tolist(), *it.shape,
                        iplan.bits.tolist(), ilens.tolist()))
+        k3.append(("rank %d, (%d, %d) at %s bits" % (
+            rank, *it.shape, sorted(set(iplan.bits.tolist()))),
+            k3_timed(it, ilt, iplan)))
     log("multi-process shapes, ms (CUDA events, median of 7; the plain "
-        "versions of K1 and K3 median of 3; each 'plain' is the plain "
-        "version of the entry before it): %s"
-        % ", ".join("%s %.4f" % kv for kv in t))
+        "version of K1 median of 3; each 'plain' is the plain version of "
+        "the entry before it): %s" % ", ".join("%s %.4f" % kv for kv in t))
+    log_k3("the multi-process shapes", k3)
 
 
 def multiprocess_runs():
@@ -2265,7 +2446,7 @@ def dry_runs(dev):
     with held_to_plain({}) as seen:
         for devices in shares:
             dryrun.dryrun(devices)
-    need({k: len(seen.get(k, ())) for k in KERNELS}, KERNELS[:4],
+    need({k: len(seen.get(k, ())) for k in KERNELS[:4]}, KERNELS[:4],
          "the dry runs under held_to_plain")
     log_held("dry runs' shapes", seen)
     reset_counts()
@@ -2436,6 +2617,12 @@ def main():
                       "minnow_tpu/ops/pallas_encode.py:1045 + :714 + :388"),
                "K2": ("decode_float", "minnow_torch/csrc/decode_float.cu",
                       "minnow_tpu/ops/pallas_codec.py:526 + :252"),
+               "K3 stats": ("int_stats", "minnow_torch/csrc/pack_int.cu",
+                            "minnow_tpu/ops/pallas_encode.py:949 (its stats "
+                            "in XLA, minnow_tpu/ops/codec.py:212)"),
+               "K3 plan": ("int_plan", "minnow_torch/csrc/pack_int.cu",
+                           "minnow_tpu/ops/pallas_encode.py:949 (its plan on "
+                           "the host, minnow_tpu/parallel/pipeline.py:264)"),
                "K3": ("pack_int", "minnow_torch/csrc/pack_int.cu",
                       "minnow_tpu/ops/pallas_encode.py:949 + "
                       "minnow_tpu/ops/pallas_pack.py:82"),
@@ -2444,9 +2631,10 @@ def main():
                "K5": ("encode_float_pack_q",
                       "minnow_torch/csrc/encode_float.cu",
                       "minnow_tpu/ops/pallas_encode.py:809")}
-    kernels = [dict(name="%s %s" % (k, sources[k][0]), route="cuda",
-                    source=sources[k][1], replaces=sources[k][2],
-                    launches=launches[k], **results[k]) for k in sources]
+    kernels = [dict(name="%s %s" % (k.split()[0], sources[k][0]),
+                    route="cuda", source=sources[k][1],
+                    replaces=sources[k][2], launches=launches[k],
+                    **results[k]) for k in sources]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

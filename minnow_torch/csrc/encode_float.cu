@@ -91,19 +91,15 @@
 #include <type_traits>
 
 #include "bitstream.cuh"
+#include "plan.cuh"
 
 namespace {
 
-using minnow::kThreads;
+using namespace minnow;  // kThreads; the plan's rows and layout
 
 enum { kQ0, kYMin, kYMax, kQMin, kQMax, kValid, kNStats };
 
-// rows of the device plan, each B int64 long; after them come the total
-// number of words and the words of the longest block stream
-enum { kPMins, kPMaxd, kPBits, kPValid, kPM, kPOffsets, kNPlan };
-
 constexpr int kWarps = kThreads / 32;
-constexpr int kPlanThreads = 1024;
 // the float packs: one thread per group of 32 elements, so a tile of
 // kTile elements that starts at a multiple of 32 is whole words at any
 // width (32 elements at width w are exactly w words)
@@ -257,34 +253,6 @@ stats_kernel(const float* __restrict__ x, long long n, int run,
   if (t == 0 && first.ok) s[kQ0] = first.q;
 }
 
-// Inclusive prefix sum of v over the CTA's threads; `total` gets the sum.
-// `warp_sums` is 32 values of shared scratch, free again on return.
-__device__ __forceinline__ long long cta_inclusive_scan(long long v,
-                                                        long long* warp_sums,
-                                                        long long* total) {
-  const unsigned int all = 0xffffffffu;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long up = __shfl_up_sync(all, v, o);
-    if (lane >= o) v += up;
-  }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    long long s = warp_sums[lane];
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long up = __shfl_up_sync(all, s, o);
-      if (lane >= o) s += up;
-    }
-    warp_sums[lane] = s;
-  }
-  __syncthreads();
-  if (warp > 0) v += warp_sums[warp - 1];
-  *total = warp_sums[31];
-  __syncthreads();
-  return v;
-}
-
 // One CTA of kPlanThreads threads: codec.finish_float_stats and the width,
 // word count and word offset of every block.  All of it is 64-bit: the
 // count alone can pass an int, and so does the sum q0 + ymin + pixels on
@@ -295,57 +263,32 @@ plan_kernel(const int* __restrict__ stats,
             const unsigned char* __restrict__ periodic,
             const long long* __restrict__ lens, long long B,
             long long* __restrict__ plan) {
-  __shared__ long long warp_sums[32];
-  long long carry = 0, longest = 0;
-  for (long long base = 0; base < B; base += kPlanThreads) {
-    const long long b = base + threadIdx.x;
-    long long nw = 0;
-    if (b < B) {
-      const int* s = stats + b * kNStats;
-      const long long p = pixels[b];
-      const bool per = periodic[b] != 0;
-      const long long len = lens[b];
-      const bool empty = len == 0;
-      const long long w = (long long)s[kYMax] - s[kYMin] + 1;
-      const bool small = w <= (p >> 1);
-      long long m = (long long)s[kQ0] + s[kYMin];
-      if (m < 0) m += p;
-      if (!small) m = 0;
-      const bool shifted = per && small;
-      long long mn = shifted ? m : (long long)s[kQMin];
-      const long long mx = shifted ? m + w - 1 : (long long)s[kQMax];
-      const bool valid = s[kValid] != 0 || empty;
-      if (!per || empty) m = 0;
-      long long maxd = mx - mn;
-      if (empty || !valid) mn = maxd = 0;
-      const long long bits = 64 - __clzll(maxd);
-      nw = (bits * len + 31) >> 5;
-      longest = max(longest, nw);
-      plan[kPMins * B + b] = mn;
-      plan[kPMaxd * B + b] = maxd;
-      plan[kPBits * B + b] = bits;
-      plan[kPValid * B + b] = valid;
-      plan[kPM * B + b] = m;
-    }
-    long long chunk;
-    const long long incl = cta_inclusive_scan(nw, warp_sums, &chunk);
-    if (b < B) plan[kPOffsets * B + b] = carry + incl - nw;
-    carry += chunk;
-  }
-  // the longest stream: a max over the CTA through the same scratch
-  longest = max(longest, __shfl_xor_sync(0xffffffffu, longest, 16));
-  longest = max(longest, __shfl_xor_sync(0xffffffffu, longest, 8));
-  longest = max(longest, __shfl_xor_sync(0xffffffffu, longest, 4));
-  longest = max(longest, __shfl_xor_sync(0xffffffffu, longest, 2));
-  longest = max(longest, __shfl_xor_sync(0xffffffffu, longest, 1));
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = longest;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kPlanThreads / 32; ++w)
-      longest = max(longest, warp_sums[w]);
-    plan[kNPlan * B] = carry;
-    plan[kNPlan * B + 1] = longest;
-  }
+  lay_out_plan(B, plan, [&](long long b) {
+    const int* s = stats + b * kNStats;
+    const long long p = pixels[b];
+    const bool per = periodic[b] != 0;
+    const long long len = lens[b];
+    const bool empty = len == 0;
+    const long long w = (long long)s[kYMax] - s[kYMin] + 1;
+    const bool small = w <= (p >> 1);
+    long long m = (long long)s[kQ0] + s[kYMin];
+    if (m < 0) m += p;
+    if (!small) m = 0;
+    const bool shifted = per && small;
+    long long mn = shifted ? m : (long long)s[kQMin];
+    const long long mx = shifted ? m + w - 1 : (long long)s[kQMax];
+    const bool valid = s[kValid] != 0 || empty;
+    if (!per || empty) m = 0;
+    long long maxd = mx - mn;
+    if (empty || !valid) mn = maxd = 0;
+    const long long bits = 64 - __clzll(maxd);
+    plan[kPMins * B + b] = mn;
+    plan[kPMaxd * B + b] = maxd;
+    plan[kPBits * B + b] = bits;
+    plan[kPValid * B + b] = valid;
+    plan[kPM * B + b] = m;
+    return (bits * len + 31) >> 5;
+  });
 }
 
 // The pixel of a raw 32-bit element of the source: K1 quantizes a float

@@ -5,16 +5,17 @@ A wrapper given CUDA tensors launches its kernel (``csrc/encode_float.cu``,
 ``csrc/pack_int.cu``) or raises; given CPU tensors it runs the plain
 version.  Nothing else chooses between them.
 
-A float encode is three launches with nothing for the host between them:
-per-block stats (:func:`float_stats`), the plan of the batch on the device
-(:func:`float_plan`: each block's minimum, width and word offset) and the
-pack (:func:`pack_float`, or with ``reuse_q`` K5, :func:`pack_float_q`,
-from the pixels the stats launch stored).  The host reads the plan once,
-after the pack is queued (:func:`read_plan`, a :class:`Plan`).  An int
-encode plans on the host from device reductions and packs with K3.
-Encoded blocks come back as one flat int32 word buffer (the uint32 bit
-patterns) holding each block's stream at its own width, back to back at
-``plan.offsets`` (``bitpack.block_layout``).
+An encode, float or int, is three launches with nothing for the host
+between them: per-block stats (:func:`float_stats`, :func:`int_stats`),
+the plan of the batch on the device (:func:`float_plan`,
+:func:`int_plan`: each block's minimum, width and word offset, in one
+layout for both) and the pack (:func:`pack_float`, or with ``reuse_q`` K5,
+:func:`pack_float_q`, from the pixels the stats launch stored; K3 for
+ints).  The host reads the plan once, after the pack is queued
+(:func:`read_plan`, a :class:`Plan`).  Encoded blocks come back as one flat
+int32 word buffer (the uint32 bit patterns) holding each block's stream at
+its own width, back to back at ``plan.offsets``
+(``bitpack.block_layout``).
 """
 
 from __future__ import annotations
@@ -25,12 +26,13 @@ import numpy as np
 import torch
 
 from . import _build, bitpack, codec
-from ._launch import (COUNT_LOCK, THREADS, expect, grid_y, on_card,
-                      stream_of)
+from ._launch import COUNT_LOCK, THREADS, expect, on_card, stream_of
 
 __all__ = [
     "K1_LAUNCHES",
     "K3_LAUNCHES",
+    "K3_STATS_LAUNCHES",
+    "K3_PLAN_LAUNCHES",
     "K5_LAUNCHES",
     "Plan",
     "float_stats",
@@ -46,28 +48,39 @@ __all__ = [
     "start_float_group",
     "finish_float_group",
     "encode_float_group",
+    "int_stats",
+    "int_stats_plain",
+    "int_plan",
+    "int_plan_plain",
     "plan_int",
     "delta_pack_int",
     "delta_pack_int_plain",
+    "start_int_group",
+    "finish_int_group",
     "encode_int_group",
     "pack_batch",
     "pack_batch_plain",
 ]
 
-# kernel launches made by the wrappers (K1 counts each of its three)
+# kernel launches made by the wrappers (K1 counts each of its three; K3
+# its packs, from either entry, beside its stats and plan launches)
 K1_LAUNCHES = 0
 K3_LAUNCHES = 0
+K3_STATS_LAUNCHES = 0
+K3_PLAN_LAUNCHES = 0
 K5_LAUNCHES = 0
 
 # launch shapes (``tools.ab_launch`` sweeps them at 4096 x 2^17 on the
-# H100; PERF.md, Findings): elements each thread takes in K1's stats
-# launch, and output words per thread of K3.  The float packs (K1, K5)
-# size their own grid: as many persistent CTAs as the card holds
+# H100; PERF.md, Findings): elements each thread takes in a stats launch
+# (K1's and K3's), and output words per thread of K3's pack on a block of
+# 64-bit deltas (its grid also fills the card where there are few
+# blocks).  The float packs (K1, K5) size their own grid: as many
+# persistent CTAs as the card holds
 STATS_PER_THREAD = 32
 PACK_PER_THREAD = 8
 
-# rows of the device plan (csrc/encode_float.cu): six rows of B int64,
-# then the total number of words and the longest block stream's
+# rows of the device plan (csrc/plan.cuh), K1's and K3's: six rows of B
+# int64, then the total number of words and the longest block stream's
 PLAN_ROWS = 6
 
 
@@ -180,21 +193,28 @@ def plan_float(stats, params: codec.BlockParams, lens) -> Plan:
     return _plan(mn, maxd, valid, m, host[3].numpy())
 
 
-def float_plan_plain(stats, params, lens):
-    """Plain version of K1's plan launch: ``codec.finish_float_stats``,
-    the bit length of each largest delta (below 2^62) and the exclusive
-    prefix sum of the blocks' word counts, in the device plan's layout."""
-    m, mn, maxd, valid = codec.finish_float_stats(
-        stats, params.pixels, params.periodic, lens)
-    zero = torch.zeros_like(mn)
-    mn = torch.where(valid, mn, zero)
-    maxd = torch.where(valid, maxd, zero)
-    powers = 2 ** torch.arange(62, dtype=torch.int64, device=stats.device)
-    bits = torch.bucketize(maxd, powers, right=True)
+def _plan_rows(mn, maxd, valid, m, lens):
+    """The device plan's layout from its (B,) int64 rows: the width of
+    each largest delta (``spec.precision_needed`` of the uint64 bit
+    pattern ``maxd`` holds) and the exclusive prefix sum of the blocks'
+    word counts, then the total and the longest stream."""
+    powers = 2 ** torch.arange(63, dtype=torch.int64, device=maxd.device)
+    bits = torch.where(maxd < 0, 64,
+                       torch.bucketize(maxd, powers, right=True))
     nw = (bits * lens + 31) >> 5
     tail = torch.stack([nw.sum(), nw.max() if nw.numel() else nw.sum()])
     return torch.cat([mn, maxd, bits, valid.to(torch.int64), m,
                       nw.cumsum(0) - nw, tail])
+
+
+def float_plan_plain(stats, params, lens):
+    """Plain version of K1's plan launch: ``codec.finish_float_stats``,
+    then the widths and offsets of :func:`_plan_rows`."""
+    m, mn, maxd, valid = codec.finish_float_stats(
+        stats, params.pixels, params.periodic, lens)
+    zero = torch.zeros_like(mn)
+    return _plan_rows(torch.where(valid, mn, zero),
+                      torch.where(valid, maxd, zero), valid, m, lens)
 
 
 def _launch_plan(stats, params, lens):
@@ -347,9 +367,11 @@ def start_float_group(x, params: codec.BlockParams, lens,
     return words, dplan, capacity
 
 
-def finish_float_group(pending):
-    """``(words, plan)`` of a float encode that :func:`start_float_group`
-    queued: one read of the device plan."""
+def finish_group(pending):
+    """``(words, plan)`` of an encode that :func:`start_float_group` or
+    :func:`start_int_group` queued: one read of the device plan.  The
+    words are a view of the buffer the start allocated, cut to the plan's
+    total."""
     words, plan, capacity = pending
     if capacity is None:  # the plain versions have finished already
         return words, plan
@@ -358,6 +380,9 @@ def finish_float_group(pending):
         raise ValueError("the batch packs to %d words, above the capacity "
                          "of %d" % (plan.total, capacity))
     return words[:plan.total], plan
+
+
+finish_float_group = finish_int_group = finish_group
 
 
 def encode_float_group(x, params: codec.BlockParams, lens,
@@ -379,20 +404,7 @@ def encode_float_group(x, params: codec.BlockParams, lens,
                                                 capacity))
 
 
-# -- K3: int delta pack ---------------------------------------------------------
-
-
-def plan_int(x, lens, stats=None) -> Plan:
-    """Host plan of an int batch: minimum and wrapped max delta of each
-    block by plain PyTorch reductions on ``x``'s device, as the JAX
-    package takes them in XLA (``codec.int_block_stats``).  ``stats`` is
-    that function's result where the caller has queued it already."""
-    if stats is None:
-        stats = codec.int_block_stats(x, lens)
-    mins, maxd = (t.cpu().numpy() for t in stats)
-    b = len(mins)
-    return _plan(mins, maxd, np.ones(b, bool), np.zeros(b, np.int64),
-                 lens.cpu().numpy())
+# -- K3: int encode -----------------------------------------------------------
 
 
 def _check_int_args(x, lens):
@@ -401,50 +413,165 @@ def _check_int_args(x, lens):
     return on_card(x, lens)
 
 
+def int_stats_plain(x, lens):
+    """Plain version of K3's stats launch: ``codec.int_block_stats`` as
+    (B, 2) int64 rows of each block's minimum and maximum."""
+    mn, maxd = codec.int_block_stats(x, lens)
+    return torch.stack([mn, mn + maxd], dim=1)
+
+
+def _launch_int_stats(x, lens):
+    global K3_STATS_LAUNCHES
+    b, n = x.shape
+    stats = torch.empty((b, 2), dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.load().minnow_int_stats(
+            x.data_ptr(), b, n, THREADS * STATS_PER_THREAD, lens.data_ptr(),
+            stats.data_ptr(), stream_of(x))
+    with COUNT_LOCK:
+        K3_STATS_LAUNCHES += 1
+    _build.check(err, "int_stats")
+    return stats
+
+
+def int_stats(x, lens):
+    """(B, 2) int64 rows of the minimum and the maximum of each block of
+    ``x`` (B, n) int64 over its first ``lens`` elements, (0, 0) for an
+    empty block; K3's first launch on the card."""
+    if not _check_int_args(x, lens):
+        return int_stats_plain(x, lens)
+    _check_lens(lens, x.shape[1])
+    if x.shape[0] == 0:
+        return torch.empty((0, 2), dtype=torch.int64, device=x.device)
+    return _launch_int_stats(x, lens)
+
+
+def int_plan_plain(stats, lens):
+    """Plain version of K3's plan launch: each block's minimum, the
+    wrapped ``max - min`` as its largest delta and that delta's width,
+    zeros for an empty block, every block valid with ``m`` 0, in the
+    device plan's layout (:func:`_plan_rows`)."""
+    empty = lens == 0
+    zero = torch.zeros_like(lens)
+    mn = torch.where(empty, zero, stats[:, 0])
+    maxd = torch.where(empty, zero, stats[:, 1] - stats[:, 0])
+    return _plan_rows(mn, maxd, torch.ones_like(empty), zero, lens)
+
+
+def _launch_int_plan(stats, lens):
+    global K3_PLAN_LAUNCHES
+    b = stats.shape[0]
+    plan = torch.empty(PLAN_ROWS * b + 2, dtype=torch.int64,
+                       device=stats.device)
+    with torch.cuda.device(stats.device):
+        err = _build.load().minnow_int_plan(
+            stats.data_ptr(), lens.data_ptr(), b, plan.data_ptr(),
+            stream_of(stats))
+    with COUNT_LOCK:
+        K3_PLAN_LAUNCHES += 1
+    _build.check(err, "int_plan")
+    return plan
+
+
+def int_plan(stats, lens):
+    """The plan of an int batch from its stats rows, on their device, in
+    the layout of :func:`float_plan`; K3's second launch on the card."""
+    expect(stats, "stats", torch.int64, (None, 2))
+    expect(lens, "lens", torch.int64, (stats.shape[0],))
+    if not on_card(stats, lens):
+        return int_plan_plain(stats, lens)
+    return _launch_int_plan(stats, lens)
+
+
+def plan_int(x, lens) -> Plan:
+    """Host plan of an int batch: :func:`int_stats` and :func:`int_plan`
+    on ``x``'s device, then one read.  No encode path calls it: it is
+    for callers that change a plan before they pack by it
+    (:func:`delta_pack_int`)."""
+    return read_plan(int_plan(int_stats(x, lens), lens))
+
+
 def delta_pack_int_plain(x, lens, plan: Plan):
-    """Plain version of K3."""
+    """Plain version of K3's pack."""
     dev = x.device
     return bitpack.pack(x - _put(plan.mins, np.int64, dev)[:, None],
                         _put(plan.bits, np.int64, dev), lens,
                         _put(plan.offsets, np.int64, dev), plan.total)
 
 
-def delta_pack_int(x, lens, plan: Plan):
-    """Pack ``x - mins`` (B, n) int64, wrapping, at each block's planned
-    width (0..64) over its first ``lens`` elements into the (plan.total,)
-    int32 buffer; K3 on the card."""
+def _launch_int_pack(x, lens, plan, capacity: int):
+    """K3's pack of ``x`` by the device plan ``plan`` into a new buffer
+    of ``capacity`` words.  A block whose stream would end past the
+    buffer is left out."""
     global K3_LAUNCHES
-    if not _check_int_args(x, lens):
-        return delta_pack_int_plain(x, lens, plan)
     b, n = x.shape
-    _check_lens(lens, n)
-    if plan.bits.size != b or plan.bits.max(initial=0) > 64:
-        raise ValueError("the plan must give B widths in [0, 64]")
-    dev = x.device
-    words = torch.empty(plan.total, dtype=torch.int32, device=dev)
-    if plan.total == 0:
-        return words
-    mins, offsets = (_put(a, np.int64, dev)
-                     for a in (plan.mins, plan.offsets))
-    bits = _put(plan.bits, np.int32, dev)
-    with torch.cuda.device(dev):
+    words = torch.empty(capacity, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
         err = _build.load().minnow_pack_int(
-            x.data_ptr(), b, n, mins.data_ptr(), bits.data_ptr(),
-            lens.data_ptr(), offsets.data_ptr(), words.data_ptr(),
-            grid_y(plan.max_words, PACK_PER_THREAD), stream_of(x))
+            x.data_ptr(), b, n, plan.data_ptr(), lens.data_ptr(),
+            words.data_ptr(), capacity, PACK_PER_THREAD, stream_of(x))
     with COUNT_LOCK:
         K3_LAUNCHES += 1
     _build.check(err, "pack_int")
     return words
 
 
-def encode_int_group(x, lens, stats=None):
+def _launch_int_encode(x, lens, capacity: int):
+    """K3's stats, plan and pack launches on ``x`` (B >= 1, n >= 1),
+    queued with nothing for the host between them: ``(words, device
+    plan)``."""
+    plan = _launch_int_plan(_launch_int_stats(x, lens), lens)
+    return _launch_int_pack(x, lens, plan, capacity), plan
+
+
+def delta_pack_int(x, lens, plan: Plan):
+    """Pack ``x - mins`` (B, n) int64, wrapping, at each block's planned
+    width (0..64) over its first ``lens`` elements into the (plan.total,)
+    int32 buffer, by a plan the caller made on the host (its own minimums
+    or one width: :func:`pack_batch`, ``validate``); K3's pack on the
+    card, the plan brought there in one copy."""
+    if not _check_int_args(x, lens):
+        return delta_pack_int_plain(x, lens, plan)
+    b, n = x.shape
+    _check_lens(lens, n)
+    if plan.bits.size != b or plan.bits.max(initial=0) > 64:
+        raise ValueError("the plan must give B widths in [0, 64]")
+    if plan.total == 0:
+        return torch.empty(0, dtype=torch.int32, device=x.device)
+    return _launch_int_pack(x, lens, _device_plan(plan, x.device),
+                            plan.total)
+
+
+def start_int_group(x, lens, capacity: int = None):
+    """Queue the int encode of :func:`encode_int_group` on ``x``'s device
+    and return at once, with what :func:`finish_int_group` needs to bring
+    the result to the host: on the card K3's stats, plan and pack
+    launches, and nothing that waits for the device between them."""
+    if not _check_int_args(x, lens):
+        plan = read_plan(int_plan_plain(int_stats_plain(x, lens), lens))
+        return delta_pack_int_plain(x, lens, plan), plan, None
+    b, n = x.shape
+    _check_lens(lens, n)
+    if capacity is None:
+        capacity = 2 * b * n
+    if b == 0 or n == 0:  # no block holds an element: nothing to launch
+        plan = np.zeros(PLAN_ROWS * b + 2, np.int64)
+        plan[3 * b:4 * b] = 1  # the valid row
+        return (torch.empty(0, dtype=torch.int32, device=x.device),
+                _put(plan, np.int64, x.device), capacity)
+    return (*_launch_int_encode(x, lens, capacity), capacity)
+
+
+def encode_int_group(x, lens, capacity: int = None):
     """Encode int blocks ``x`` (B, n) int64 over their first ``lens``
-    elements: host plan from device reductions (``stats``, see
-    :func:`plan_int`), then K3.  Returns ``(words, plan)``."""
-    _check_int_args(x, lens)
-    plan = plan_int(x, lens, stats)
-    return delta_pack_int(x, lens, plan), plan
+    elements: stats launch, plan launch, pack launch, then one read of
+    the plan.  Returns ``(words, plan)``; every block has its true width.
+
+    ``capacity`` is an upper bound on the words of the batch that the
+    caller has on the host (the word buffer is allocated before the plan
+    is known); without one it is 2 B n, every block at 64 bits, the bytes
+    of ``x``."""
+    return finish_int_group(start_int_group(x, lens, capacity))
 
 
 def _batch_plan(x, bits: int):

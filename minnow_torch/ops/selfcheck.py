@@ -18,7 +18,7 @@ which need no certificate, and the callers do not ask for one
 (:func:`certify`); :func:`kernel_ok` itself runs on any device.
 
 Families, as in the reference: ``encode`` (K1 at the flagship width, K3
-at 41 and 18 bits), ``decode`` (K2 in ``none`` and ``midpoint``, K4 at 18
+-- its stats, plan and pack launches -- at 41 and 18 bits), ``decode`` (K2 in ``none`` and ``midpoint``, K4 at 18
 and 41 bits) and ``decode_uniform`` (K2's counter-hash dither).  K1 and K2
 are also held at pixel counts of 2^31 and more (:func:`wide_float_blocks`),
 where the circle's arithmetic is 64-bit, and K2 and K4 through the ragged
@@ -252,8 +252,8 @@ def _check_encode(device) -> None:
             payload, mn, bits = spec.encode_int_block(xi[i])
             if (int(plan.mins[i]), int(plan.bits[i])) != (mn, bits) \
                     or bits != ibits:
-                raise AssertionError("K3 plan diverges from spec at %d bits"
-                                     % ibits)
+                raise AssertionError("K3 plan diverges from spec at %d "
+                                     "bits, block %d" % (ibits, i))
             if payload_of(words, plan, i, _N) != payload:
                 raise AssertionError("K3 payload bytes diverge from spec "
                                      "(bits=%d, block %d)" % (ibits, i))

@@ -4,15 +4,15 @@ of ``minnow_tpu/parallel/pipeline.py``).
 A batch of minnow blocks, one per row, goes to the device, is encoded
 there by kernel K1 (float) or K3 (int) at each block's true width, and
 comes back as per-block payload bytes plus the tail metadata the
-container needs (ref go/group.go:242-255, 312-327).  A float batch is
-three launches and then one read: the plan of the batch (minimums, widths,
-offsets) comes to the host with the words.  Float blocks the
-kernel does not certify (non-finite values, pixels beyond int32, or a
-periodic block with pixels outside ``[0, pixels)``) are encoded by the
-normative host encoder ``spec.encode_float_block``, as the reference's
-pipeline does (``pipeline.py:474-487``); with ``clamp_q`` so are the
-valid blocks whose largest pixel reaches ``pixels``, the only pixels
-``clamp_q`` changes.  A block goes there for the pixels its data holds,
+container needs (ref go/group.go:242-255, 312-327).  A batch, float or
+int, is three launches and then one read: the plan of the batch
+(minimums, widths, offsets) comes to the host with the words.  Float
+blocks the kernel does not certify (non-finite values, pixels beyond
+int32, or a periodic block with pixels outside ``[0, pixels)``) are
+encoded by the normative host encoder ``spec.encode_float_block``, as the
+reference's pipeline does (``pipeline.py:474-487``); with ``clamp_q`` so
+are the valid blocks whose largest pixel reaches ``pixels``, the only
+pixels ``clamp_q`` changes.  A block goes there for the pixels its data holds,
 never for its pixel count: counts are 64-bit, and a column of 2^31
 pixels or more is encoded on the device like any other as long as its
 pixels fit an int32.  ``HOST_BLOCKS`` counts the blocks sent there.
@@ -173,12 +173,14 @@ class BlockEncoder:
         queued = []
         for dev, stream, s in shares:
             with self._on(stream):
-                xt, lt = self._put(x[s], dev), self._put(lens[s], dev)
-                queued.append((xt, lt, codec.int_block_stats(xt, lt)))
+                # every block at 64 bits: the bytes of the share's elements
+                queued.append(encode.start_int_group(
+                    self._put(x[s], dev), self._put(lens[s], dev),
+                    capacity=2 * int(lens[s].sum())))
         encoded = []
-        for (_, stream, _), args in zip(shares, queued):
+        for (_, stream, _), pending in zip(shares, queued):
             with self._on(stream):
-                encoded.append(encode.encode_int_group(*args))
+                encoded.append(encode.finish_int_group(pending))
         payloads = self._read_payloads(shares, encoded, lens)
         plans = [plan for _, plan in encoded]
         return EncodedBlocks(payloads,

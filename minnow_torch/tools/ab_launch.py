@@ -7,14 +7,17 @@ At the flagship block shape (4096 blocks x 2^17 elements, 18 bits) each
 launch runs at every value of its sweep, in two passes of opposite order
 (median of N each, CUDA events), and its output must be bitwise equal to
 that at the shipped value.  The constants swept are
-``encode.STATS_PER_THREAD`` (elements per thread of K1's stats launch),
-``encode.PACK_PER_THREAD`` (words per thread of K3),
+``encode.STATS_PER_THREAD`` (elements per thread of K1's and of K3's
+stats launch), ``encode.PACK_PER_THREAD`` (words per thread of K3's pack
+on a block at 64 bits),
 ``decode.DECODE_PER_THREAD`` (K2, uniform and none) and
 ``decode.UNPACK_PER_THREAD`` (K4, on K3's words at 18 bits and at 54
 bits); they are set back afterwards.  A 2 GiB device copy gives the
 card's memory rate; K1's plan launch is timed beside the host's
-``plan_float``, K3's host plan alone, and K1's pack and K5 (which size
-their own grids, one persistent CTA for each the card holds) once.
+``plan_float``, K3's plan launch alone and ``plan_int`` (K3's stats and
+plan launches and one read) on the host clock, and K1's pack and K5
+(which size their own grids, one persistent CTA for each the card
+holds) once.
 
 The block-major schedule asks whether x can be read from device memory
 once: the float encode runs chunk by chunk (K1's stats, plan and pack, or
@@ -44,6 +47,7 @@ from ..utils.device import card_info, cuda_device, time_ms
 SHAPE = (4096, 1 << 17)
 SWEEPS = {
     "K1 stats": (encode, "STATS_PER_THREAD", [4, 8, 16, 32, 64]),
+    "K3 stats": (encode, "STATS_PER_THREAD", [4, 8, 16, 32, 64]),
     "K3 pack": (encode, "PACK_PER_THREAD", [1, 2, 4, 8, 16]),
     "K2 uniform": (decode, "DECODE_PER_THREAD", [1, 2, 4, 8, 16, 32]),
     "K2 none": (decode, "DECODE_PER_THREAD", [1, 2, 4, 8, 16, 32]),
@@ -194,9 +198,15 @@ def main(argv=None):
     xi = torch.randint(0, 1 << 18, (b, n), generator=gen, device=dev,
                        dtype=torch.int64) + (1 << 53)
     out["plan_int_ms"] = host_ms(lambda: encode.plan_int(xi, lens), reps)
-    iplan = encode.plan_int(xi, lens)
+    out["K3 stats"] = sweep("K3 stats", lambda: encode.int_stats(xi, lens),
+                            reps)
+    istats = encode.int_stats(xi, lens)
+    out["K3 plan"] = time_ms(lambda: encode.int_plan(istats, lens), reps)
+    dplan = encode.int_plan(istats, lens)
+    total = encode.read_plan(dplan).total
     out["K3 pack"] = sweep(
-        "K3 pack", lambda: encode.delta_pack_int(xi, lens, iplan), reps)
+        "K3 pack", lambda: encode._launch_int_pack(xi, lens, dplan, total),
+        reps)
     unpack_sweep(out, "K4 18 bits", xi, lens, reps)
     del xi
     torch.cuda.empty_cache()
@@ -206,8 +216,9 @@ def main(argv=None):
     xw[:, 0], xw[:, 1] = 0, (1 << 54) - 1
     unpack_sweep(out, "K4 54 bits", xw, lens, reps)
     print("plans: plan_float on the host %.3f ms, K1's plan launch %.3f "
-          "ms, plan_int %.3f ms"
-          % (out["plan_float_ms"], out["float_plan_ms"], out["plan_int_ms"]))
+          "ms, K3's plan launch %.3f ms, plan_int %.3f ms"
+          % (out["plan_float_ms"], out["float_plan_ms"], out["K3 plan"],
+             out["plan_int_ms"]))
     smi = card_info()
     out["card"] = smi
     print(smi)

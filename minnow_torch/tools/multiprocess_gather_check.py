@@ -202,6 +202,7 @@ def worker(rank: int, num: int, port: int, out_file: str, mode: str,
             selfcheck.kernel_ok(family, dev)
     t["certify"] = clock() - t0
     encode.K1_LAUNCHES = encode.K3_LAUNCHES = encode.K5_LAUNCHES = 0
+    encode.K3_STATS_LAUNCHES = encode.K3_PLAN_LAUNCHES = 0
     decode.K2_LAUNCHES = decode.K4_LAUNCHES = 0
 
     t0 = clock()
@@ -302,6 +303,8 @@ def worker(rank: int, num: int, port: int, out_file: str, mode: str,
                    "launches": {"K1": encode.K1_LAUNCHES,
                                 "K2": decode.K2_LAUNCHES,
                                 "K3": encode.K3_LAUNCHES,
+                                "K3 stats": encode.K3_STATS_LAUNCHES,
+                                "K3 plan": encode.K3_PLAN_LAUNCHES,
                                 "K4": decode.K4_LAUNCHES,
                                 "K5": encode.K5_LAUNCHES}}, f)
     distributed.barrier()

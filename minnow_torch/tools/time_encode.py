@@ -1,5 +1,6 @@
-"""Times of the float encode (K1, K5), the float decode (K2) and the int
-unpack (K4) on one CUDA card, for one checkout or for two in turns.
+"""Times of the float encode (K1, K5), the int encode (K3), the float
+decode (K2) and the int unpack (K4) on one CUDA card, for one checkout or
+for two in turns.
 
     python3 minnow_torch/tools/time_encode.py [--reps N] [--root DIR]
     python3 minnow_torch/tools/time_encode.py --compare OTHER_CHECKOUT
@@ -16,26 +17,36 @@ library it built (``cuobjdump -sass`` from beside nvcc, under the
 function's mangled name), which do not move with the card.  It uses only
 what both generations of ``minnow_torch.ops.encode``
 have (``float_stats``, ``plan_float``, ``pack_float``, ``pack_float_q``,
-``encode_float_group``, ``encode_int_group``, ``decode.decode_float_group``,
-``decode.decode_int_group``), and K1's plan launch where there is one.
+``encode_float_group``, ``encode_int_group``, ``plan_int``,
+``delta_pack_int``, ``decode.decode_float_group``,
+``decode.decode_int_group``), and K1's plan launch and K3's stats and
+plan launches where there are.
 
 Shapes, all CUDA events, median of N after warm-up:
 
 * flagship: 4096 blocks x 2^17 elements, periodic, 250,000 pixels (18
   bits): each launch alone, the whole call, the ``reuse_q`` call, the host
-  plan on the host clock, K2's ``uniform`` decode of K1's words, and K4
-  on K3's words at 18 and at 54 bits (each checked to give K3's input
-  back);
+  plan on the host clock, K2's ``uniform`` decode of K1's words, and at
+  18 and at 54 bits the int encode's call (CUDA events and host clock),
+  ``plan_int`` on the host clock, K3's pack by that host plan and, where
+  the checkout has them, K3's stats, plan and pack launches each alone,
+  and K4 on K3's words (checked to give K3's input back);
 * text_to_minh: the 8 float columns of one row-block of 853,007 halos
   (two log columns, three periodic positions, three velocities);
 * minh_to_bnd: one position column of 512 ragged cells of 3,619..4,026;
 * convert_snapshot: one axis of a minp file, 512 blocks of 4,096.
 
 For the last three the whole call only, and beside it the host's wall
-time of the call (it ends in a device-to-host copy of the plan).  Each
-shape also gets its bound: the bytes of x and of the packed words over
-the H100's 3.35 TB/s of device memory.  The last lines are the nvidia-smi
-line and one JSON object.
+time of the call (it ends in a device-to-host copy of the plan).  The int
+encode's call and host wall time also at the int shapes of the main
+paths: text_to_minh's two int columns of a row-block (2, 853,007),
+minh_to_bnd's ID column of 512 ragged cells at 20 bits and the same cells
+at 54 bits, and a multi-process rank's ID batch (3, 126,096) at 37 bits;
+where the checkout has K3's three launches, also those launches alone,
+20 times over in one CUDA graph, a replay over 20.  Each shape also gets
+its bound: the bytes of x (its live elements, for ints) and of the
+packed words over the H100's 3.35 TB/s of device memory.  The last lines
+are the nvidia-smi line and one JSON object.
 """
 
 from __future__ import annotations
@@ -85,6 +96,28 @@ def bound_ms(x, words):
     """The least milliseconds for reading ``x`` and writing ``words`` once
     at 3.35 TB/s."""
     return (x.numel() + words.numel()) * 4 / 3.35e12 * 1e3
+
+
+def _int_batches(rng):
+    """name -> (x, lens) as numpy: the int batches of the main paths."""
+    from minnow_torch.tools import multiprocess_gather_check as mp
+
+    out = {}
+    n = 853_007
+    out["text_to_minh ints (2, 853007)"] = (np.stack([
+        np.where(rng.random(n) < 0.8, -1, rng.integers(3e9, 4e9, n)),
+        rng.integers(0, 6, n)]), np.full(2, n, np.int64))
+    lens = rng.integers(3619, 4027, 512)
+    lens[0], lens[256] = 4026, 0
+    live = np.arange(4026)[None, :] < lens[:, None]
+    for bits in (20, 54):
+        x = (1 << 53) + 1 + rng.integers(0, 1 << bits, (512, 4026))
+        out["minh_to_bnd ids (512, <=4026) %d bits" % bits] = (
+            np.where(live, x, 0), lens)
+    blocks = mp.make_catalog(999_888)
+    ib, ilens = mp.rank_batches(blocks, range(3))[:2]
+    out["rank 0 ids (%d, %d)" % ib.shape] = (ib, ilens)
+    return out
 
 
 def sass_counts(lib_path, nvcc):
@@ -180,7 +213,8 @@ def measure(reps):
     del words, w2d
     torch.cuda.empty_cache()
 
-    # K4 on K3's words at 18 and at 54 bits
+    # K3 at 18 and at 54 bits, and K4 on its words
+    launches = hasattr(encode, "start_int_group")
     for bits, lo in ((18, 1 << 53), (54, -(1 << 62))):
         xi = torch.randint(0, 1 << bits, (b, n), generator=gen, device=dev,
                            dtype=torch.int64) + lo
@@ -188,6 +222,29 @@ def measure(reps):
         iwords, iplan = encode.encode_int_group(xi, lens)
         if not (iplan.bits == bits).all():
             raise AssertionError("K3 widths %s" % set(iplan.bits))
+        at = " at %d bits" % bits
+        t["K3 call" + at] = time_ms(
+            lambda: encode.encode_int_group(xi, lens), reps)
+        t["K3 call, host clock" + at] = wall_ms(
+            lambda: encode.encode_int_group(xi, lens))
+        t["plan_int, host clock" + at] = wall_ms(
+            lambda: encode.plan_int(xi, lens))
+        t["K3 pack by the host plan" + at] = time_ms(
+            lambda: encode.delta_pack_int(xi, lens, iplan), reps)
+        if launches:
+            istats = encode.int_stats(xi, lens)
+            dplan = encode.int_plan(istats, lens)
+            t["K3 stats launch" + at] = time_ms(
+                lambda: encode.int_stats(xi, lens), reps)
+            t["K3 plan launch" + at] = time_ms(
+                lambda: encode.int_plan(istats, lens), reps)
+            t["K3 pack launch" + at] = time_ms(
+                lambda: encode._launch_int_pack(xi, lens, dplan,
+                                                iplan.total), reps)
+            del istats, dplan
+        t["K3 bound" + at] = (xi.numel() * 8 + iwords.numel() * 4) \
+            / 3.35e12 * 1e3
+        out["K3 words checksum" + at] = int(iwords.to(torch.int64).sum())
         i2d = iwords.view(b, -1)
         imins = torch.from_numpy(iplan.mins).to(dev)
 
@@ -217,6 +274,23 @@ def measure(reps):
             "bound": bound_ms(xt, words),
             "words checksum": int(words.to(torch.int64).sum()),
             "widths": sorted({int(v) for v in plan.bits})}
+    for name, (xn, ln) in _int_batches(np.random.default_rng(4)).items():
+        xt = torch.from_numpy(xn).to(dev)
+        lt = torch.from_numpy(ln).to(dev)
+        words, plan = encode.encode_int_group(xt, lt)
+        out[name] = {
+            "K3 call": time_ms(lambda: encode.encode_int_group(xt, lt), reps),
+            "K3 call, host clock": wall_ms(
+                lambda: encode.encode_int_group(xt, lt)),
+            "bound": (int(ln.sum()) * 8 + words.numel() * 4) / 3.35e12 * 1e3,
+            "words checksum": int(words.to(torch.int64).sum()),
+            "widths": sorted({int(v) for v in plan.bits})}
+        if launches:
+            from minnow_torch.utils.device import graph_ms
+
+            out[name]["K3 launches, graph of 20"] = graph_ms(
+                lambda: encode._launch_int_encode(xt, lt, plan.total),
+                reps=reps)
     out["SASS instructions"] = sass_counts(_build.load()._name,
                                            _build._nvcc())
     return out

@@ -12,7 +12,7 @@ import subprocess
 
 import torch
 
-__all__ = ["cuda_device", "card_info", "time_ms"]
+__all__ = ["cuda_device", "card_info", "time_ms", "graph_ms"]
 
 
 def cuda_device() -> torch.device:
@@ -51,3 +51,18 @@ def time_ms(fn, reps=7, warmup=2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, count=20, reps=7) -> float:
+    """Milliseconds of one ``fn()`` without the host's time to issue it:
+    ``count`` calls captured in one CUDA graph, the median replay over
+    ``count``.  ``fn`` must launch on the current stream and must not
+    wait for the device."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kept = [fn() for _ in range(count)]
+    ms = time_ms(graph.replay, reps) / count
+    del graph, kept
+    return ms

@@ -257,6 +257,11 @@ def test_pack_batch_matches_plain_and_spec(dev):
     assert encode.K3_LAUNCHES == before + 32
 
 
+def _k3_launches():
+    return (encode.K3_STATS_LAUNCHES, encode.K3_PLAN_LAUNCHES,
+            encode.K3_LAUNCHES)
+
+
 def test_k3_matches_plain_and_spec(dev):
     rng = np.random.default_rng(5)
     n = 777
@@ -270,13 +275,57 @@ def test_k3_matches_plain_and_spec(dev):
     x = np.stack(rows)
     xt = torch.from_numpy(x).to(dev)
     lt = torch.full((64,), n, dtype=torch.int64, device=dev)
+    before = _k3_launches()
     words, plan = encode.encode_int_group(xt, lt)
+    # three launches, and the host reads the plan once, after them
+    assert _k3_launches() == tuple(k + 1 for k in before)
     _same(words, encode.delta_pack_int_plain(xt, lt, plan))
     assert list(plan.bits) == list(range(1, 65))
     enc = BlockEncoder(dev).encode_int_blocks(x)
     for i in range(64):
         assert (enc.payloads[i], enc.mins[i], enc.bits[i]) == \
             spec.encode_int_block(x[i])
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_k3_launches_match_plain(dev, case):
+    """The stats, plan and pack launches and the whole call against their
+    plain versions on ``chip_smoke.py``'s batches: widths 1..64, then 1,
+    18, 37, 54 and 64 bits on lengths 0, 1, 31, 32, 33, 2049 and 4097
+    with garbage past each length, then -2^63 beside 2^63 - 1; and
+    ``BlockEncoder`` on the card against ``spec``."""
+    x, lens = chip_smoke.k3_batches(np.random.default_rng(9))[case]
+    chip_smoke.hold_k3(torch.from_numpy(x).to(dev),
+                       torch.from_numpy(lens).to(dev), "case %d" % case)
+    enc = BlockEncoder(dev).encode_int_blocks(x, lens=lens)
+    for i, m in enumerate(lens):
+        assert (enc.payloads[i], enc.mins[i], enc.bits[i]) == \
+            spec.encode_int_block(x[i, :m]), i
+
+
+@pytest.mark.parametrize("shape", [(0, 16), (3, 0), (0, 0)])
+def test_int_encode_of_no_elements_launches_nothing(dev, shape):
+    x = torch.zeros(shape, dtype=torch.int64, device=dev)
+    lens = torch.zeros(shape[0], dtype=torch.int64, device=dev)
+    before = _k3_launches()
+    words, plan = encode.encode_int_group(x, lens)
+    assert _k3_launches() == before
+    assert words.numel() == plan.total == plan.max_words == 0
+    assert plan.bits.shape == (shape[0],) and plan.valid.all()
+    assert (plan.bits == 0).all() and (plan.mins == 0).all()
+    torch.cuda.synchronize()
+
+
+def test_int_encode_refuses_a_capacity_too_small(dev):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(0, 1 << 40, (5, 3000))).to(dev)
+    lens = torch.tensor([3000, 0, 1, 2999, 77], device=dev)
+    words, plan = encode.encode_int_group(x, lens, capacity=2 * 15000)
+    assert words.numel() == plan.total
+    _same(encode.encode_int_group(x, lens, capacity=plan.total)[0], words)
+    with pytest.raises(ValueError, match="capacity"):
+        encode.encode_int_group(x, lens, capacity=plan.total - 1)
+    torch.cuda.synchronize()
 
 
 def test_block_encoder_float_on_card_matches_spec(dev):

@@ -55,6 +55,9 @@ def test_unknown_family_and_missing_card(monkeypatch):
 DIVERGENCES = [
     ("encode", encode, "pack_float_plain", "K1 payload"),
     ("encode", encode, "delta_pack_int_plain", "K3 payload"),
+    # K3's stats and plan launches: a minimum one off
+    ("encode", encode, "int_stats_plain", "K3 plan"),
+    ("encode", encode, "int_plan_plain", "K3 plan"),
     ("decode", decode, "decode_int_plain", "K2 none decode"),
     ("decode_uniform", decode, "decode_float_plain", "K2 uniform decode"),
 ]
@@ -97,6 +100,7 @@ def _spy_on_wrappers(monkeypatch):
     calls = []
     for mod, name in ((encode, "start_float_group"),
                       (encode, "encode_int_group"),
+                      (encode, "start_int_group"),
                       (decode, "decode_float_group"),
                       (decode, "decode_int_group")):
         fn = getattr(mod, name)
@@ -136,6 +140,7 @@ def test_a_divergence_stops_the_encoder_and_the_readers(monkeypatch):
     # only the checks themselves reached a wrapper, each family once
     assert calls.count("start_float_group") == 1   # the encode check's K1
     assert calls.count("encode_int_group") == 1    # stopped at 41 bits
+    assert calls.count("start_int_group") == 1     # the check's, no other
     assert calls.count("decode_float_group") == 1  # stopped at none
     assert calls.count("decode_int_group") == 0
 

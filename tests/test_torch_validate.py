@@ -116,6 +116,19 @@ def _shifted_hash(c, k1, k2):
     return _shifted_hash.real(c + 1, k1, k2)
 
 
+def _low_minimum(x, lens):
+    stats = _low_minimum.real(x, lens).clone()
+    stats[:, 0] -= 1
+    return stats
+
+
+def _wider_plan(stats, lens):
+    plan = _wider_plan.real(stats, lens).clone()
+    b = len(lens)
+    plan[2 * b:3 * b] = torch.clamp(plan[2 * b:3 * b] + 1, max=64)
+    return plan
+
+
 # (module, attribute, replacement, the section that must raise, its words)
 BREAKS = [
     (codec, "quantize", _off_by_one_quantize, "validate_quantize",
@@ -127,6 +140,11 @@ BREAKS = [
      "payload diverges"),
     (codec, "dither_hash_u", _shifted_hash, "validate_kernels",
      "K2 uniform decode diverges"),
+    # K3's stats and plan launches, which the int encode runs
+    (encode, "int_stats_plain", _low_minimum, "validate_kernels",
+     "K3 plan diverges"),
+    (encode, "int_plan_plain", _wider_plan, "validate_kernels",
+     "K3 plan diverges"),
 ]
 
 
