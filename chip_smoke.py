@@ -17,9 +17,12 @@ Phases, each of which raises at its first failure:
    lengths 1, 31, 32, 33, 2049 and 2^17 - 1, the plan launch also against
    the host's ``plan_float``; K2 float decode at widths 0..64 in the
    three dither modes; K3 int encode (its stats, plan and pack launches
-   and the whole call) at widths 0..64 with IDs above 2^53, and at 1, 18,
-   37, 54 and 64 bits on lengths 0, 1, 31, 32, 33, 2049 and 4097 with
-   garbage past each length, and -2^63 beside 2^63 - 1 in one block;
+   and the whole call) at widths 0..64 with IDs above 2^53, at 1, 18,
+   37, 54 and 64 bits on lengths 0, 1, 31, 32, 33, 2049 and 4097, at 1,
+   31, 32, 33, 54, 63 and 64 bits on lengths 1 to 8193 around the pack's
+   tiles of 4,096, on rows on 16-byte boundaries and rows 8 bytes off
+   one, with garbage past each length, and -2^63 beside 2^63 - 1 in one
+   block;
    K4 int unpack at widths 0..64 with minimums at -2^63 and 2^63 - 1 and
    deltas of 2^width - 1; K2 and K4 also through their ragged entry on
    one column of widths 0..64 at start bytes 0..3 (mod 4), lengths 1, 31,
@@ -29,10 +32,11 @@ Phases, each of which raises at its first failure:
    B10 ``decode_int_group`` with zero minimums and B11 ``pack_batch`` at
    widths 1..32 (also against ``spec.pack_bits``).
    Then each kernel at the flagship block shape (4096 blocks x 2^17
-   elements, 18 bits; K3 and K4 also at 54 bits), timed (CUDA events,
-   median of 7 after warm-up) beside its plain version; K1's three
-   launches, the stats launch storing pixels, K5, and K3's three launches
-   (its stats launch beside ``torch.aminmax``) apart.  The path of K5,
+   elements, 18 bits; K3 also at 37, 54 and 64 bits, K4 at 54), timed
+   (CUDA events, median of 7 after warm-up) beside its plain version;
+   K1's three launches, the stats launch storing pixels, K5, and K3's
+   three launches (its stats launch beside ``torch.aminmax``, both also
+   alone in a CUDA graph) apart.  The path of K5,
    ``encode_float_group(reuse_q=True)``, runs once there with the launch
    counts at zero around it, and its words must equal K1's.
    Last (the sweep is mostly ``core.spec`` on the host, and the card's
@@ -141,7 +145,10 @@ worker, K3's stats and plan launches must be as many as its packs.  The
 last three lines are the nvidia-smi line, a JSON line with each kernel's
 numbers (K3's three launches apart; launches: the sum over those runs,
 phase 7's summed over its ranks; ``bound_ms``: the least time the card
-could take for the flagship call, from its bytes and operations), and
+could take for the flagship call, from its bytes and operations; K3's
+stats launch's ``ms`` and ``library_ms`` are the launch and
+``torch.aminmax`` alone in a CUDA graph, its ``call_ms`` and
+``library_call_ms`` the two as calls), and
 ``{"ok": true, "device": ...}``.  Without a CUDA device, or outside a
 checkout of the repository, it fails before printing any of them.  Files
 go to ``build/chip_smoke/`` in the checkout.
@@ -440,13 +447,46 @@ def check_k2(dev, rng):
     return err
 
 
+def _k3_ragged(rng, bits, n, lens):
+    """Blocks of ``lens`` at n whose live elements span exactly ``bits``
+    bits (from 2^53 + 7, or -2^63 at 63 and 64 bits), random words past
+    each length."""
+    x = rng.integers(-(1 << 63), (1 << 63) - 1, (len(lens), n),
+                     dtype=np.int64, endpoint=True)
+    lo = -(1 << 63) if bits >= 63 else (1 << 53) + 7
+    for i, m in enumerate(lens):
+        d = rng.integers(0, (1 << 64) - 1 if bits == 64 else 1 << bits, m,
+                         dtype=np.uint64)
+        d[:2] = (0, (1 << bits) - 1)[:m]
+        x[i, :m] = d.view(np.int64) + np.int64(lo)
+    return x, lens
+
+
+# lengths and widths of the tile cases: whole, ragged and next-to-whole
+# tiles of K3's pack (4,096 elements), and the widths on either side of
+# the point where a delta needs its high half, and the widest
+TILE_LENS = (1, 31, 32, 33, 4095, 4096, 4097, 8191, 8193, 0)
+TILE_WIDTHS = (1, 31, 32, 33, 54, 63, 64)
+
+
+def k3_tile_batches(rng):
+    """K3's tile cases as numpy ``(x, lens)``: at each of ``TILE_WIDTHS``
+    blocks of ``TILE_LENS``, at n = 8,194 for the odd widths (every row on
+    a 16-byte boundary) and 8,193 for the even ones (every other row 8
+    bytes off one)."""
+    lens = np.array(TILE_LENS, np.int64)
+    return [_k3_ragged(rng, bits, 8193 + (bits & 1), lens)
+            for bits in TILE_WIDTHS]
+
+
 def k3_batches(rng):
     """K3's cases as numpy ``(x, lens)``: widths 1..64 at n = 3,001 (IDs
     above 2^53, minimums down to -2^63, every seventh block 11 shorter);
     at 1, 18, 37, 54 and 64 bits, blocks of lengths 0, 1, 31, 32, 33,
-    2,049 and 4,097 whose padding holds random words, the empty ones
-    too; and one block holding -2^63 and 2^63 - 1 (width 64) beside a
-    constant one (width 0)."""
+    2,049 and 4,097 at n = 4,097; :func:`k3_tile_batches`; the padding of
+    every block holds random words, the empty ones' too; and, last, one
+    block holding -2^63 and 2^63 - 1 (width 64) beside a constant one
+    (width 0)."""
     n = 3001
     rows = []
     for bits in range(1, 65):
@@ -458,18 +498,9 @@ def k3_batches(rng):
     lens = np.full(64, n, np.int64)
     lens[::7] = n - 11
     out = [(np.stack(rows), lens)]
-    n = 4097
     lens = np.array([0, 1, 31, 32, 33, 2049, 4097, 0], np.int64)
-    for bits in (1, 18, 37, 54, 64):
-        x = rng.integers(-(1 << 63), (1 << 63) - 1, (len(lens), n),
-                         dtype=np.int64, endpoint=True)
-        lo = -(1 << 63) if bits == 64 else (1 << 53) + 7
-        for i, m in enumerate(lens):
-            d = rng.integers(0, (1 << 64) - 1 if bits == 64 else 1 << bits,
-                             m, dtype=np.uint64)
-            d[:2] = (0, (1 << bits) - 1)[:m]
-            x[i, :m] = d.view(np.int64) + np.int64(lo)
-        out.append((x, lens))
+    out += [_k3_ragged(rng, bits, 4097, lens) for bits in (1, 18, 37, 54, 64)]
+    out += k3_tile_batches(rng)
     x = np.full((2, 5), 42, np.int64)
     x[0, 1], x[0, 3] = -(1 << 63), (1 << 63) - 1
     out.append((x, np.array([5, 5], np.int64)))
@@ -566,9 +597,11 @@ def check_k3(dev, rng):
         raise AssertionError("K3 sweep: widths not seen %s"
                              % sorted(set(range(65)) - widths))
     log("K3 sweep: widths 0..64 at n=3001 (IDs above 2^53); 1, 18, 37, 54 "
-        "and 64 bits on lengths 0, 1, 31, 32, 33, 2049 and 4097 with "
-        "garbage past each length; -2^63 beside 2^63 - 1: the stats rows, "
-        "the device plan and the words bitwise equal to the plain versions")
+        "and 64 bits on lengths 0, 1, 31, 32, 33, 2049 and 4097; 1, 31, 32, "
+        "33, 54, 63 and 64 bits on lengths 1, 31, 32, 33, 4095, 4096, 4097, "
+        "8191, 8193 and 0 at n=8193 and 8194; garbage past each length; "
+        "-2^63 beside 2^63 - 1: the stats rows, the device plan and the "
+        "words bitwise equal to the plain versions")
     return 0
 
 
@@ -829,6 +862,26 @@ def check_tile_entries(dev, rng):
 PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
 
 
+def log_ptxas(build_log):
+    """Each kernel's registers and spills as ``ptxas -v`` gave them,
+    under the kernel's name (a template kernel's name with its argument's
+    mangled code: ``pack_tiles_kernel<i>`` is the int instance)."""
+    kernel, spills = "?", ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]{8}(\d+)",
+                      line)
+        if m:
+            kernel = line[m.end():m.end() + int(m.group(1))]
+            arg = re.match(r"I(\w)E", line[m.end() + int(m.group(1)):])
+            if arg:
+                kernel += "<%s>" % arg.group(1)
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            log("  %s: %s; %s" % (kernel, line.split(":", 1)[1].strip(),
+                                  spills))
+
+
 def bound(nbytes, ops, library_ms=None):
     """The least time the card could take for a kernel's work: the bytes
     it must move (each input read once, each output written once) over
@@ -1051,16 +1104,19 @@ def flagship(dev, results):
     del xi, words
     torch.cuda.empty_cache()
 
-    # one wide width at the same shape: every block spans exactly 54 bits
-    xw = torch.randint(0, 1 << 54, (b, n), generator=gen, device=dev,
-                       dtype=torch.int64) - (1 << 62)
-    xw[:, 0] = -(1 << 62)
-    xw[:, 1] = -(1 << 62) + (1 << 54) - 1
-    words, plan = k3_flagship(xw, lens, 54, results)
-    k4_flagship(xw, words.view(b, int(plan.offsets[1])), plan.mins, 54,
-                results)
-    del xw, words
-    torch.cuda.empty_cache()
+    # wider widths at the same shape: every block spans exactly 37, 54 or
+    # 64 bits; K4 reads the 54-bit words back
+    for bits in (37, 54, 64):
+        lo = -(1 << 63) if bits == 64 else -(1 << 62)
+        xw = torch.randint(0, 1 << min(bits, 62), (b, n), generator=gen,
+                           device=dev, dtype=torch.int64) + lo
+        xw[:, 0], xw[:, 1] = lo, lo + (1 << bits) - 1
+        words, plan = k3_flagship(xw, lens, bits, results)
+        if bits == 54:
+            k4_flagship(xw, words.view(b, int(plan.offsets[1])), plan.mins,
+                        54, results)
+        del xw, words
+        torch.cuda.empty_cache()
     return reuse_path
 
 
@@ -1069,10 +1125,16 @@ def k3_flagship(x, lens, bits, results):
     pack launches and the whole call, each held against its plain version
     on the same tensors, bitwise (the stats and the pack chunk by chunk:
     their int64 temporaries would not fit at once), and timed, CUDA
-    events, median of 7 (plain median of 3); beside the stats launch
-    ``torch.aminmax`` over the rows, the one PyTorch call that computes it
-    where every block is whole, as here.  The 18-bit numbers go into the
-    kernels line.  Returns the call's ``(words, plan)``."""
+    events, median of 7; beside the stats launch ``torch.aminmax`` over
+    the rows, the one PyTorch call that computes it where every block is
+    whole, as here, both also alone (a CUDA graph of ``GRAPH_LAUNCHES``
+    calls, a replay over their number: no host work between).  At 18 bits the
+    plain versions are timed too (median of 3) and the numbers go into the
+    kernels line: for the stats launch its time alone, beside
+    ``torch.aminmax``'s alone, and both as a call (``call_ms``,
+    ``library_call_ms``: a call of ``int_stats`` also checks lens, which
+    waits for a copy to the host).  Returns the call's ``(words,
+    plan)``."""
     b, n = x.shape
     words, plan = encode.encode_int_group(x, lens)
     if not (plan.bits == bits).all():
@@ -1104,29 +1166,49 @@ def k3_flagship(x, lens, bits, results):
                                                          total)),
          "call": time_ms(lambda: encode.encode_int_group(x, lens)),
          "torch.aminmax": time_ms(lambda: torch.aminmax(x, dim=1)),
-         "stats plain": time_ms(plain_stats, reps=3, warmup=1),
-         "plan plain": time_ms(lambda: encode.int_plan_plain(stats, lens),
-                               reps=3, warmup=1),
-         "pack plain": time_ms(plain_pack, reps=3, warmup=1)}
+         "stats alone": graph_ms(lambda: encode._launch_int_stats(x, lens),
+                                 GRAPH_LAUNCHES),
+         "torch.aminmax alone": graph_ms(lambda: torch.aminmax(x, dim=1),
+                                         GRAPH_LAUNCHES)}
+    if bits == 18:
+        t.update({
+            "stats plain": time_ms(plain_stats, reps=3, warmup=1),
+            "plan plain": time_ms(lambda: encode.int_plan_plain(stats, lens),
+                                  reps=3, warmup=1),
+            "pack plain": time_ms(plain_pack, reps=3, warmup=1)})
     x_bytes, w_bytes = x.numel() * 8, words.numel() * 4
     # bytes: x and the words, and for each block the lens, stats and plan
     # rows a launch reads or writes
+    # the stats launch beside torch.aminmax, both alone: a call of
+    # int_stats also checks lens, a copy to the host before the launch
     bounds = {"stats": bound(x_bytes + (1 + 2) * 8 * b, 2 * b * n,
-                             t["torch.aminmax"]),
+                             t["torch.aminmax alone"]),
               "plan": bound((2 + 1 + encode.PLAN_ROWS) * 8 * b + 16, 8 * b),
               "pack": bound(x_bytes + w_bytes + (1 + 3) * 8 * b, 4 * b * n),
               "call": bound(x_bytes + w_bytes, 6 * b * n)}
     if bits == 18:
-        for key, launch in (("K3 stats", "stats"), ("K3 plan", "plan"),
-                            ("K3", "pack")):
-            results[key].update(ms=t[launch], plain_ms=t[launch + " plain"],
+        for key, launch, ms in (("K3 stats", "stats", "stats alone"),
+                                ("K3 plan", "plan", "plan"),
+                                ("K3", "pack", "pack")):
+            results[key].update(ms=t[ms], plain_ms=t[launch + " plain"],
                                 **bounds[launch])
+        results["K3 stats"].update(call_ms=t["stats"],
+                                   library_call_ms=t["torch.aminmax"])
     gb8 = b * n * 8 / 1e9
     log("K3 flagship %dx%d at %d bits, ms (CUDA events, median of 7; plain "
-        "median of 3): %s; the call %.1f GB/s of int64, %.1f %% of its "
-        "bound %.3f ms (x once and the words); stats, device plan and "
-        "words bitwise equal to the plain versions"
-        % (b, n, bits, ", ".join("%s %.3f" % kv for kv in t.items()),
+        "median of 3; alone: a graph of %d): %s; the pack %.1f %% of its "
+        "bound %.3f ms; the stats launch alone %.3f ms (%.1f %% of its "
+        "bound %.3f) against torch.aminmax alone %.3f, as a call %.3f "
+        "against %.3f; the call %.1f GB/s "
+        "of int64, %.1f %% of its bound %.3f ms (x once and the words); "
+        "stats, device plan and words bitwise equal to the plain versions"
+        % (b, n, bits, GRAPH_LAUNCHES,
+           ", ".join("%s %.3f" % kv for kv in t.items()),
+           100 * bounds["pack"]["bound_ms"] / t["pack"],
+           bounds["pack"]["bound_ms"], t["stats alone"],
+           100 * bounds["stats"]["bound_ms"] / t["stats alone"],
+           bounds["stats"]["bound_ms"], t["torch.aminmax alone"],
+           t["stats"], t["torch.aminmax"],
            gb8 / t["call"] * 1e3, 100 * bounds["call"]["bound_ms"]
            / t["call"], bounds["call"]["bound_ms"]))
     del stats, dplan
@@ -2567,9 +2649,7 @@ def main():
     t0 = time.perf_counter()
     _build.load()
     log("build: %.2f s" % (time.perf_counter() - t0))
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            log("  " + line.strip())
+    log_ptxas(_build.build_log())
 
     results = {k: {"max_abs_err": 0} for k in KERNELS}
     rng = np.random.default_rng(5)

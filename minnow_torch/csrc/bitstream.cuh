@@ -4,16 +4,18 @@
 // least significant bit first, in little-endian uint32 words
 // (minnow_tpu/core/spec.py:87-127; ref go/bit/bit.go).
 //
-// Both directions are in gather form: a thread computes one whole output
-// word (pack) or one whole element (unpack, at any start bit) from what
-// it reads, so no two threads write the same word, nothing needs atomics,
-// and the bytes do not depend on scheduling.  They replace the TPU's
-// planar tile pack and unpack (minnow_tpu/ops/pallas_encode.py:218
-// _pack_tile_planar, minnow_tpu/ops/pallas_codec.py:355
-// _unpack_group_tiles), which exist to fit the (8, 128) vreg tiling.  gather_word serves the int pack, whose
-// widths reach 64; the float packs (encode_float.cu) pack groups of 32
-// elements in registers, one thread a group, and only divide by the
-// width, with the helpers at the end of this file.
+// The packs (K1 and K5, encode_float.cu, widths 0..32; K3, pack_int.cu,
+// widths 0..64) work by aligned tiles in shared memory: one thread packs
+// a group of 32 elements in registers at a width that is a template
+// constant, into exactly `bits` words, and the CTA writes the tile's
+// words out in whole lines, mapping a word to its group with div_by
+// below.  The unpacks (K2, K4) are in gather form: a thread extracts one
+// whole element at any start bit with element_at, so no two threads
+// write the same word, nothing needs atomics, and the bytes do not depend
+// on scheduling.  They replace the TPU's planar tile pack and unpack
+// (minnow_tpu/ops/pallas_encode.py:218 _pack_tile_planar,
+// minnow_tpu/ops/pallas_codec.py:355 _unpack_group_tiles), which exist to
+// fit the (8, 128) vreg tiling.
 
 #pragma once
 
@@ -24,26 +26,6 @@ namespace minnow {
 // Mask of the low `bits` bits, for bits in [0, 64].
 __device__ __forceinline__ uint64_t low_mask(int bits) {
   return bits >= 64 ? ~0ull : ((1ull << bits) - 1ull);
-}
-
-// Word `w` of a stream of `n` elements at width `bits` (1..64).
-// `value(i)` returns element i already masked to `bits` bits.  The word
-// covers stream bits [32w, 32w + 32); every element that overlaps it adds
-// its part, shifted into place.
-template <class Value>
-__device__ __forceinline__ uint32_t gather_word(long long w, int bits,
-                                                long long n, Value value) {
-  const long long first_bit = w * 32;
-  const long long i0 = first_bit / bits;
-  long long i1 = (first_bit + 31) / bits;
-  if (i1 > n - 1) i1 = n - 1;
-  uint32_t word = 0;
-  for (long long i = i0; i <= i1; ++i) {
-    const uint64_t v = value(i);
-    const long long off = i * bits - first_bit;  // in (-64, 32)
-    word |= off >= 0 ? (uint32_t)(v << off) : (uint32_t)(v >> (-off));
-  }
-  return word;
 }
 
 // The element of width `bits` (1..64) that starts at bit `bit` of the
@@ -67,10 +49,14 @@ __device__ __forceinline__ uint64_t element_at(const uint32_t* src,
 // (ops/_launch.py THREADS).
 constexpr int kThreads = 256;
 
-// Division by a width w in 1..32 without a divide: for 0 <= a < 2^26,
-// div_by(a, div_magic(w)) == a / w.  With M = floor(2^31 / w) + 1,
-// 2a M / 2^32 = a / w + a (M w - 2^31) / (w 2^31); M w - 2^31 <= w <= 32,
-// so the excess is below 1 / w and never reaches the next integer.
+// Division by a width w in 1..64 without a divide: for a >= 0 with
+// a w < 2^31, div_by(a, div_magic(w)) == a / w.  With M = floor(2^31 / w)
+// + 1, 2a M / 2^32 = a / w + a (M w - 2^31) / (w 2^31); M w - 2^31 <= w,
+// so the excess is at most a / 2^31, below 1 / w, and a / w, whose
+// fraction is at most (w - 1) / w, never reaches the next integer.  The
+// packs map a tile's words to their groups with it: K1's tiles have at
+// most 32 * 128 words (a < 2^12, w <= 32), K3's at most 64 * 4,096 / 32
+// = 8,192 (a < 2^13, w <= 64).
 __device__ __forceinline__ uint32_t div_magic(int w) {
   return (1u << 31) / (uint32_t)w + 1u;
 }

@@ -19,7 +19,9 @@
 // shared memory, and adds one atomicMin and one atomicMax on long long to
 // the block's two slots, so that a long block spreads over many CTAs.
 // Min and max do not depend on the order of the atomics: the result is
-// the same every run.
+// the same every run.  Alone it runs as fast as torch.aminmax over the
+// same rows; 16-byte loads, more loads in flight and a persistent grid
+// that flushes once a block were measured no faster (PERF.md, Findings).
 //
 // minnow_int_plan (one CTA) turns them into each block's minimum, largest
 // delta and width, 64 - clz of the delta in unsigned arithmetic (0 for a
@@ -27,19 +29,34 @@
 // device plan K1 writes too (plan.cuh).  The host reads the plan once,
 // after the pack is queued.
 //
-// minnow_pack_int: one thread per output word, gather form
-// (bitstream.cuh), native 64-bit arithmetic: the TPU kernel's split into
-// u32 limb planes existed because Mosaic has no 64-bit vectors.  Width,
-// minimum and word offset come from a device plan, the plan launch's or
-// one the caller made on the host; the grid from what the host knows
-// before the plan (B, n and the card's SMs), so the launch is queued
-// before the plan exists.  A CTA strides over its block's words; a block
-// that needs fewer words than the grid has threads leaves them idle.
+// minnow_pack_int packs by aligned tiles, as K1's pack does.  32 elements
+// at width w fill exactly w words, so a tile of kTile elements (4,096)
+// that starts at a multiple of 32 is kTile w / 32 whole words at the word
+// offset plan.offsets[b] + (start / 32) w.  The grid is fixed before the
+// plan exists: a persistent CTA for each one the card holds walks over
+// all B * ceil(n / kTile) tiles and skips those past a block's length or
+// at width 0.  The next tile of x comes into shared memory by cp.async
+// (16 bytes a copy where the rows are 16-byte aligned, 8 otherwise) while
+// this one is packed.  Each thread takes one group of 32 elements: it
+// subtracts the block's minimum from them in registers, packs them into
+// the group's w words with shifts that are constants (the width selects
+// one of 64 instantiations), and stores the words over the group's own 64
+// input slots.  Then the CTA writes the tile's words out in whole
+// coalesced lines.  No division is left in the loop: the one map from a
+// tile's word to its group divides by the width with a multiply
+// (bitstream.cuh div_by).  A block's last, ragged tile takes the same path
+// with its element count as the guard and packs zeros past it.  Two
+// stages of a 4,096-element tile are 64 KB of int64, above the 48 KB a
+// CTA gets statically, so the buffer is dynamic: the first launch on a
+// device raises the kernel's limit
+// (cudaFuncAttributeMaxDynamicSharedMemorySize) and sizes the grid, and
+// later ones reuse that grid.
 //
-// What bounds them on the H100: device memory.  The stats launch reads x
-// once (8 bytes an element); the pack reads it again (each element by the
-// one or two threads whose words it touches) and writes bits/8 bytes.
+// What bounds them on the H100: device memory, by the bytes they must
+// move.  The stats launch reads x once (8 bytes an element); the pack
+// reads it again and writes bits/8 bytes an element.
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -53,9 +70,16 @@ namespace {
 using namespace minnow;  // kThreads; the plan's rows and layout
 
 constexpr int kWarps = kThreads / 32;
-// the pack's grid fills this many CTAs an SM (four waves of 8 resident
-// CTAs of 256 threads) where a batch has few blocks
-constexpr int kPackCtasPerSm = 32;
+// the pack: tiles of kTile elements, one thread per group of 32, two
+// stages of int64 in dynamic shared memory (2,048 elements a tile took
+// as long, 8,192 longer: PERF.md, Findings)
+constexpr int kTile = 4096;
+constexpr int kPackThreads = kTile / 32;
+constexpr int kPackSmem = 2 * kTile * (int)sizeof(long long);
+// the CTAs an SM holds by shared memory (228 KB an SM on the H100, 1 KB of
+// it for each CTA): 3 at kTile 4,096, which leaves a thread up to 168
+// registers; launch bounds without it held the pack to 128 and spilled
+constexpr int kPackCtasPerSm = 228 * 1024 / (kPackSmem + 1024);
 
 // Each block's slots to (INT64_MAX, INT64_MIN), for the atomics to take;
 // an empty block's to (0, 0), which no CTA touches.
@@ -143,36 +167,203 @@ int_plan_kernel(const long long* __restrict__ stats,
   });
 }
 
-// Grid (B, grid_y): CTA (b, y) packs words y * kThreads + threadIdx.x of
-// block b's stream, and every grid_y * kThreads-th word after it.  A block
-// whose stream would pass the end of `words` is not packed: the caller
-// finds the plan's total above the capacity and raises.
-__global__ void __launch_bounds__(kThreads)
+// One tile of the pack: block b, elements [start, start + cnt).
+struct Tile {
+  unsigned int b;
+  long long start;
+  int cnt;    // 0: nothing to pack (past the block's end, or width 0)
+  int width;
+};
+
+// Where 16-byte chunk j (0..15) of group g of 32 int64 lies in a tile's
+// shared buffer, in uint32 slots: the group's 256 bytes, rotated by g
+// chunks, so that the threads of a quarter warp, one group each, reach
+// eight different bank quads with their 16-byte loads and stores.  (K1's
+// groups are 32 uint32, eight chunks: encode_float.cu keeps its own.)
+__device__ __forceinline__ int chunk_at(int g, int j) {
+  return (g << 6) + (((j + g) & 15) << 2);
+}
+// uint32 slot k (0..63) of group g: half k & 1 of element k / 2 before
+// the pack, word k after it
+__device__ __forceinline__ int slot_at(int g, int k) {
+  return chunk_at(g, k >> 2) + (k & 3);
+}
+
+// Group g of a tile: its first `live` int64 (up to 32; zeros past them)
+// less the minimum mn, wrapping, masked to W bits and packed into W
+// words, stored over the group's own slots.  W is a template argument so
+// that every index, shift and mask is a constant: element i lies at bits
+// [i W, i W + W) of the group's stream.  All 32 values are in registers
+// before the first word is stored.
+template <int W>
+__device__ __forceinline__ void pack_group(uint32_t* __restrict__ buf, int g,
+                                           int live, uint64_t mn) {
+  constexpr uint64_t mask = W >= 64 ? ~0ull : (1ull << (W & 63)) - 1ull;
+  uint64_t v[32];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const ulonglong2 c =
+        *reinterpret_cast<const ulonglong2*>(buf + chunk_at(g, j));
+    v[2 * j] = c.x;
+    v[2 * j + 1] = c.y;
+  }
+#pragma unroll
+  for (int k = 0; k < 32; ++k) v[k] = k < live ? (v[k] - mn) & mask : 0ull;
+  uint32_t w[64] = {};
+#pragma unroll
+  for (int k = 0; k < W; ++k) {  // word k: stream bits [32 k, 32 k + 32)
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 32 * k / W; i <= (32 * k + 31) / W; ++i) {
+      const int off = i * W - 32 * k;  // in (-64, 32)
+      word |= off >= 0 ? (uint32_t)(v[i] << off) : (uint32_t)(v[i] >> -off);
+    }
+    w[k] = word;
+  }
+#pragma unroll
+  for (int j = 0; j < (W + 3) / 4; ++j)
+    *reinterpret_cast<uint4*>(buf + chunk_at(g, j)) =
+        make_uint4(w[4 * j], w[4 * j + 1], w[4 * j + 2], w[4 * j + 3]);
+}
+
+// The tile pack of K3, one thread per group of 32 elements (blockDim.x =
+// kPackThreads); `smem` holds two stages of kTile int64, each the tile's
+// elements and then, in place, its words.
+__global__ void __launch_bounds__(kPackThreads, kPackCtasPerSm)
 pack_int_kernel(const long long* __restrict__ x, long long n,
+                unsigned int tiles_per_row, unsigned int n_tiles,
                 const long long* __restrict__ plan, long long B,
                 const long long* __restrict__ lens,
                 unsigned int* __restrict__ words, long long capacity) {
-  const unsigned int b = blockIdx.x;
-  const int width = (int)plan[kPBits * B + b];
-  if (width == 0) return;
-  const long long len = lens[b];
-  const long long nw = ((long long)width * len + 31) / 32;
-  const long long offset = plan[kPOffsets * B + b];
-  if (offset + nw > capacity) return;
-  const long long* xb = x + (long long)b * n;
-  const uint64_t mn = (uint64_t)plan[kPMins * B + b];
-  const uint64_t mask = minnow::low_mask(width);
-  unsigned int* out = words + offset;
+  extern __shared__ __align__(16) uint32_t smem[];
 
-  auto value = [&](long long i) -> uint64_t {
-    return ((uint64_t)xb[i] - mn) & mask;
+  const long long* bits = plan + kPBits * B;
+  const long long* offsets = plan + kPOffsets * B;
+  // 16-byte copies need every row of x to start on a 16-byte boundary
+  const bool vec = ((uintptr_t)x & 15) == 0 && (n & 1) == 0;
+
+  auto tile_of = [&](unsigned int id) {
+    Tile t;
+    t.b = id / tiles_per_row;
+    t.start = (long long)(id - t.b * tiles_per_row) * kTile;
+    t.width = (int)bits[t.b];
+    const long long len = lens[t.b];
+    t.cnt = t.width == 0 || t.start >= len
+                ? 0
+                : (int)min((long long)kTile, len - t.start);
+    // a block whose stream would pass the end of `words` is not packed:
+    // the caller finds the plan's total above the capacity and raises
+    if (t.cnt &&
+        offsets[t.b] + (((long long)t.width * len + 31) >> 5) > capacity)
+      t.cnt = 0;
+    return t;
   };
 
-  const long long stride = (long long)gridDim.y * blockDim.x;
-  for (long long w = (long long)blockIdx.y * blockDim.x + threadIdx.x;
-       w < nw; w += stride) {
-    out[w] = minnow::gather_word(w, width, len, value);
+  auto load = [&](const Tile& t, uint32_t* buf) {
+    const long long* src = x + (long long)t.b * n + t.start;
+    if (vec) {
+      for (int c = threadIdx.x; 2 * c < t.cnt; c += kPackThreads) {
+        const int live = min(2, t.cnt - 2 * c);
+        __pipeline_memcpy_async(buf + chunk_at(c >> 4, c & 15), src + 2 * c,
+                                16, 16 - 8 * live);
+      }
+    } else {
+      for (int i = threadIdx.x; i < t.cnt; i += kPackThreads)
+        __pipeline_memcpy_async(buf + slot_at(i >> 5, 2 * (i & 31)), src + i,
+                                8);
+    }
+  };
+
+  unsigned int id = blockIdx.x;
+  int stage = 0;
+  Tile cur = tile_of(id);
+  load(cur, smem);
+  __pipeline_commit();
+  for (; id < n_tiles; id += gridDim.x, stage ^= 1) {
+    // the next tile loads while this one packs
+    const unsigned int next_id = id + gridDim.x;
+    Tile next = cur;
+    if (next_id < n_tiles) {
+      next = tile_of(next_id);
+      load(next, smem + (stage ^ 1) * 2 * kTile);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncthreads();
+
+    if (cur.cnt) {
+      uint32_t* buf = smem + stage * 2 * kTile;
+      const unsigned int b = cur.b;
+      const int width = cur.width;
+      const int g = threadIdx.x, first = g << 5;
+      if (first < cur.cnt) {
+        const uint64_t mn = (uint64_t)plan[kPMins * B + b];
+        const int live = min(32, cur.cnt - first);
+        switch (width) {
+#define MINNOW_PACK_CASE(W)               \
+  case W:                                 \
+    pack_group<W>(buf, g, live, mn);      \
+    break;
+#define MINNOW_PACK_CASE8(W)                                            \
+  MINNOW_PACK_CASE(W) MINNOW_PACK_CASE(W + 1) MINNOW_PACK_CASE(W + 2)   \
+  MINNOW_PACK_CASE(W + 3) MINNOW_PACK_CASE(W + 4)                       \
+  MINNOW_PACK_CASE(W + 5) MINNOW_PACK_CASE(W + 6) MINNOW_PACK_CASE(W + 7)
+          MINNOW_PACK_CASE8(1) MINNOW_PACK_CASE8(9) MINNOW_PACK_CASE8(17)
+          MINNOW_PACK_CASE8(25) MINNOW_PACK_CASE8(33) MINNOW_PACK_CASE8(41)
+          MINNOW_PACK_CASE8(49) MINNOW_PACK_CASE8(57)
+#undef MINNOW_PACK_CASE8
+#undef MINNOW_PACK_CASE
+        }
+      }
+      __syncthreads();
+
+      // the tile's words leave in whole coalesced lines: word o of the
+      // tile is word o % width of group o / width
+      const uint32_t magic = minnow::div_magic(width);
+      const int nw = (width * cur.cnt + 31) >> 5;
+      unsigned int* out = words + offsets[b] + (cur.start >> 5) * width;
+      for (int o = threadIdx.x; o < nw; o += kPackThreads) {
+        const int og = minnow::div_by(o, magic);
+        out[o] = buf[slot_at(og, o - og * width)];
+      }
+    }
+    // this stage is free for the tile after the next
+    __syncthreads();
+    cur = next;
   }
+}
+
+// The pack's grid on the current device: as many CTAs as the card holds
+// at once, found once a device (the first launch there also raises the
+// kernel's dynamic shared memory limit, before any graph capture).
+// Threads that race on a first launch store the same number.
+constexpr int kMaxDevices = 64;
+int pack_ctas[kMaxDevices];
+
+cudaError_t pack_grid(long long* ctas) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int cached = __atomic_load_n(&pack_ctas[device], __ATOMIC_ACQUIRE);
+  if (cached == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(pack_int_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kPackSmem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, pack_int_kernel, kPackThreads, kPackSmem);
+    if (err != cudaSuccess) return err;
+    cached = sms * per_sm;
+    if (cached <= 0) return cudaErrorInvalidValue;
+    __atomic_store_n(&pack_ctas[device], cached, __ATOMIC_RELEASE);
+  }
+  *ctas = cached;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -208,30 +399,24 @@ extern "C" int minnow_int_plan(const void* stats, const void* lens,
 
 // x (B, n) int64; plan as minnow_int_plan writes it, widths in [0, 64]
 // (0: nothing to write); lens (B,) int64; words: room for `capacity`
-// uint32.  Each thread takes about `per_thread` words of a block whose
-// stream is as long as it can be, 2 n words; a grid of few blocks gets
-// more CTAs a block, up to kPackCtasPerSm CTAs an SM in all.
+// uint32.  Tiles of kTile elements, one persistent CTA of kPackThreads
+// threads for each the card holds, or one a tile where there are fewer
+// tiles.
 extern "C" int minnow_pack_int(const void* x, long long B, long long n,
                                const void* plan, const void* lens,
                                void* words, long long capacity,
-                               int per_thread, void* stream) {
-  if (B <= 0 || B > 0x7fffffffLL || n <= 0 || per_thread <= 0)
-    return (int)cudaErrorInvalidValue;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+                               void* stream) {
+  if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const long long tiles_per_row = (n + kTile - 1) / kTile;
+  const long long n_tiles = B * tiles_per_row;
+  if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  long long ctas = 0;
+  const cudaError_t err = pack_grid(&ctas);
   if (err != cudaSuccess) return (int)err;
-  const long long per_cta = (long long)kThreads * per_thread;
-  const long long most = (2 * n + per_cta - 1) / per_cta;
-  const long long fill = ((long long)kPackCtasPerSm * sms + B - 1) / B;
-  long long grid_y = most < fill ? most : fill;
-  if (grid_y < 1) grid_y = 1;
-  if (grid_y > 65535) grid_y = 65535;
-  const dim3 grid((unsigned int)B, (unsigned int)grid_y);
-  pack_int_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)x, n, (const long long*)plan, B,
+  pack_int_kernel<<<(unsigned int)(ctas < n_tiles ? ctas : n_tiles),
+                    kPackThreads, kPackSmem, (cudaStream_t)stream>>>(
+      (const long long*)x, n, (unsigned int)tiles_per_row,
+      (unsigned int)n_tiles, (const long long*)plan, B,
       (const long long*)lens, (unsigned int*)words, capacity);
   return (int)cudaGetLastError();
 }

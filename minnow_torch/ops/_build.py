@@ -61,8 +61,8 @@ _SIGNATURES = {
     "minnow_int_stats": [_P, _I64, _I64, _I32, _P, _P, _P],
     # stats, lens, B, plan, stream
     "minnow_int_plan": [_P, _P, _I64, _P, _P],
-    # x, B, n, plan, lens, words, capacity, per_thread, stream
-    "minnow_pack_int": [_P, _I64, _I64, _P, _P, _P, _I64, _I32, _P],
+    # x, B, n, plan, lens, words, capacity, stream
+    "minnow_pack_int": [_P, _I64, _I64, _P, _P, _P, _I64, _P],
     # src, B, start_bit, bits, len, out_off, mins, out, grid_y, stream
     "minnow_unpack_int_ragged": [_P, _I64, _P, _P, _P, _P, _P, _P, _U32,
                                  _P],

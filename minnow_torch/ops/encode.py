@@ -70,14 +70,11 @@ K3_STATS_LAUNCHES = 0
 K3_PLAN_LAUNCHES = 0
 K5_LAUNCHES = 0
 
-# launch shapes (``tools.ab_launch`` sweeps them at 4096 x 2^17 on the
-# H100; PERF.md, Findings): elements each thread takes in a stats launch
-# (K1's and K3's), and output words per thread of K3's pack on a block of
-# 64-bit deltas (its grid also fills the card where there are few
-# blocks).  The float packs (K1, K5) size their own grid: as many
-# persistent CTAs as the card holds
+# launch shape (``tools.ab_launch`` sweeps it at 4096 x 2^17 on the
+# H100; PERF.md, Findings): elements each thread takes in a run of a
+# stats launch (K1's and K3's).  The packs (K1, K5, K3) size their own
+# persistent grids: as many CTAs as the card holds
 STATS_PER_THREAD = 32
-PACK_PER_THREAD = 8
 
 # rows of the device plan (csrc/plan.cuh), K1's and K3's: six rows of B
 # int64, then the total number of words and the longest block stream's
@@ -509,7 +506,7 @@ def _launch_int_pack(x, lens, plan, capacity: int):
     with torch.cuda.device(x.device):
         err = _build.load().minnow_pack_int(
             x.data_ptr(), b, n, plan.data_ptr(), lens.data_ptr(),
-            words.data_ptr(), capacity, PACK_PER_THREAD, stream_of(x))
+            words.data_ptr(), capacity, stream_of(x))
     with COUNT_LOCK:
         K3_LAUNCHES += 1
     _build.check(err, "pack_int")
@@ -524,18 +521,37 @@ def _launch_int_encode(x, lens, capacity: int):
     return _launch_int_pack(x, lens, plan, capacity), plan
 
 
+def _check_host_plan(plan: Plan, lens, n: int):
+    """Raise unless a host plan gives B widths in [0, 64] and every
+    block's stream ends inside ``plan.total`` words: the kernel leaves a
+    block that would pass the end of its buffer unpacked, and the plain
+    version has no room for it."""
+    lh = lens.cpu().numpy()
+    if lh.size and (lh.max() > n or lh.min() < 0):
+        raise ValueError("lens must lie in [0, %d]" % n)
+    if plan.bits.size != lh.size or plan.bits.max(initial=0) > 64 \
+            or plan.bits.min(initial=0) < 0:
+        raise ValueError("the plan must give B widths in [0, 64]")
+    nw = bitpack.words_per_block(plan.bits, lh)
+    past = np.flatnonzero((nw > 0) & (plan.offsets + nw > plan.total))
+    if past.size:
+        b = int(past[0])
+        raise ValueError("block %d's stream ends at word %d, past the "
+                         "plan's total of %d" % (
+                             b, int(plan.offsets[b] + nw[b]), plan.total))
+
+
 def delta_pack_int(x, lens, plan: Plan):
     """Pack ``x - mins`` (B, n) int64, wrapping, at each block's planned
     width (0..64) over its first ``lens`` elements into the (plan.total,)
     int32 buffer, by a plan the caller made on the host (its own minimums
     or one width: :func:`pack_batch`, ``validate``); K3's pack on the
-    card, the plan brought there in one copy."""
-    if not _check_int_args(x, lens):
+    card, the plan brought there in one copy.  A plan in which a block's
+    stream ends past ``plan.total`` raises."""
+    on = _check_int_args(x, lens)
+    _check_host_plan(plan, lens, x.shape[1])
+    if not on:
         return delta_pack_int_plain(x, lens, plan)
-    b, n = x.shape
-    _check_lens(lens, n)
-    if plan.bits.size != b or plan.bits.max(initial=0) > 64:
-        raise ValueError("the plan must give B widths in [0, 64]")
     if plan.total == 0:
         return torch.empty(0, dtype=torch.int32, device=x.device)
     return _launch_int_pack(x, lens, _device_plan(plan, x.device),

@@ -7,17 +7,17 @@ At the flagship block shape (4096 blocks x 2^17 elements, 18 bits) each
 launch runs at every value of its sweep, in two passes of opposite order
 (median of N each, CUDA events), and its output must be bitwise equal to
 that at the shipped value.  The constants swept are
-``encode.STATS_PER_THREAD`` (elements per thread of K1's and of K3's
-stats launch), ``encode.PACK_PER_THREAD`` (words per thread of K3's pack
-on a block at 64 bits),
-``decode.DECODE_PER_THREAD`` (K2, uniform and none) and
+``encode.STATS_PER_THREAD`` (elements per thread of a run of K1's and of
+K3's stats launch; K3's is timed alone, 10 in a CUDA graph, as
+``torch.aminmax`` over the same rows beside it, and both also as a
+call), ``decode.DECODE_PER_THREAD`` (K2, uniform and none) and
 ``decode.UNPACK_PER_THREAD`` (K4, on K3's words at 18 bits and at 54
 bits); they are set back afterwards.  A 2 GiB device copy gives the
 card's memory rate; K1's plan launch is timed beside the host's
 ``plan_float``, K3's plan launch alone and ``plan_int`` (K3's stats and
-plan launches and one read) on the host clock, and K1's pack and K5
-(which size their own grids, one persistent CTA for each the card
-holds) once.
+plan launches and one read) on the host clock, and the packs of K1, K5
+and K3 (at 18 and at 54 bits), which size their own grids, one
+persistent CTA for each the card holds, once.
 
 The block-major schedule asks whether x can be read from device memory
 once: the float encode runs chunk by chunk (K1's stats, plan and pack, or
@@ -42,13 +42,12 @@ import numpy as np
 import torch
 
 from ..ops import codec, decode, encode
-from ..utils.device import card_info, cuda_device, time_ms
+from ..utils.device import card_info, cuda_device, graph_ms, time_ms
 
 SHAPE = (4096, 1 << 17)
 SWEEPS = {
     "K1 stats": (encode, "STATS_PER_THREAD", [4, 8, 16, 32, 64]),
     "K3 stats": (encode, "STATS_PER_THREAD", [4, 8, 16, 32, 64]),
-    "K3 pack": (encode, "PACK_PER_THREAD", [1, 2, 4, 8, 16]),
     "K2 uniform": (decode, "DECODE_PER_THREAD", [1, 2, 4, 8, 16, 32]),
     "K2 none": (decode, "DECODE_PER_THREAD", [1, 2, 4, 8, 16, 32]),
     "K4 18 bits": (decode, "UNPACK_PER_THREAD", [1, 2, 4, 8, 16, 32]),
@@ -60,8 +59,9 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
-def sweep(label, fn, reps):
-    """Times of ``fn`` at each value of ``label``'s sweep, two passes."""
+def sweep(label, fn, reps, timer=time_ms):
+    """Times of ``fn`` at each value of ``label``'s sweep, two passes,
+    by ``timer(fn, reps)``."""
     module, attr, values = SWEEPS[label]
     shipped = getattr(module, attr)
     want = _bits(fn())
@@ -72,12 +72,26 @@ def sweep(label, fn, reps):
             if not torch.equal(_bits(fn()), want):
                 raise AssertionError("%s at %d differs from %d"
                                      % (label, v, shipped))
-            times[v].append(time_ms(fn, reps))
+            times[v].append(timer(fn, reps))
     setattr(module, attr, shipped)
     print("%s (shipped %d): %s" % (label, shipped, ", ".join(
         "%d: %.3f / %.3f ms" % (v, *t) for v, t in times.items())),
         flush=True)
     return {"shipped": shipped, "ms": times}
+
+
+def graph_timer(fn, reps):
+    """Milliseconds of one ``fn()`` alone: 10 in one CUDA graph."""
+    return graph_ms(fn, 10, reps)
+
+
+def pack_time(out, label, x, lens, reps):
+    """K3's pack of ``x`` by its device plan, once."""
+    dplan = encode.int_plan(encode.int_stats(x, lens), lens)
+    total = encode.read_plan(dplan).total
+    out[label] = time_ms(
+        lambda: encode._launch_int_pack(x, lens, dplan, total), reps)
+    print("%s: %.3f ms" % (label, out[label]), flush=True)
 
 
 def unpack_sweep(out, label, x, lens, reps):
@@ -198,15 +212,23 @@ def main(argv=None):
     xi = torch.randint(0, 1 << 18, (b, n), generator=gen, device=dev,
                        dtype=torch.int64) + (1 << 53)
     out["plan_int_ms"] = host_ms(lambda: encode.plan_int(xi, lens), reps)
-    out["K3 stats"] = sweep("K3 stats", lambda: encode.int_stats(xi, lens),
-                            reps)
+    # the stats launch alone, without the wrapper's check of lens: a CUDA
+    # graph of 10 launches, as torch.aminmax beside it
+    out["K3 stats"] = sweep("K3 stats",
+                            lambda: encode._launch_int_stats(xi, lens), reps,
+                            timer=graph_timer)
+    out["torch.aminmax"] = graph_timer(lambda: torch.aminmax(xi, dim=1),
+                                       reps)
+    out["K3 stats call"] = time_ms(lambda: encode.int_stats(xi, lens), reps)
+    out["torch.aminmax call"] = time_ms(lambda: torch.aminmax(xi, dim=1),
+                                        reps)
+    print("torch.aminmax over the same rows: %.3f ms alone, %.3f ms a call "
+          "(CUDA events around it); K3's stats call %.3f ms"
+          % (out["torch.aminmax"], out["torch.aminmax call"],
+             out["K3 stats call"]), flush=True)
     istats = encode.int_stats(xi, lens)
     out["K3 plan"] = time_ms(lambda: encode.int_plan(istats, lens), reps)
-    dplan = encode.int_plan(istats, lens)
-    total = encode.read_plan(dplan).total
-    out["K3 pack"] = sweep(
-        "K3 pack", lambda: encode._launch_int_pack(xi, lens, dplan, total),
-        reps)
+    pack_time(out, "K3 pack 18 bits", xi, lens, reps)
     unpack_sweep(out, "K4 18 bits", xi, lens, reps)
     del xi
     torch.cuda.empty_cache()
@@ -214,6 +236,7 @@ def main(argv=None):
     xw = torch.randint(0, 1 << 54, (b, n), generator=gen, device=dev,
                        dtype=torch.int64)
     xw[:, 0], xw[:, 1] = 0, (1 << 54) - 1
+    pack_time(out, "K3 pack 54 bits", xw, lens, reps)
     unpack_sweep(out, "K4 54 bits", xw, lens, reps)
     print("plans: plan_float on the host %.3f ms, K1's plan launch %.3f "
           "ms, K3's plan launch %.3f ms, plan_int %.3f ms"

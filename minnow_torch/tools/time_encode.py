@@ -27,9 +27,11 @@ Shapes, all CUDA events, median of N after warm-up:
 * flagship: 4096 blocks x 2^17 elements, periodic, 250,000 pixels (18
   bits): each launch alone, the whole call, the ``reuse_q`` call, the host
   plan on the host clock, K2's ``uniform`` decode of K1's words, and at
-  18 and at 54 bits the int encode's call (CUDA events and host clock),
-  ``plan_int`` on the host clock, K3's pack by that host plan and, where
-  the checkout has them, K3's stats, plan and pack launches each alone,
+  18, 37, 54 and 64 bits the int encode's call (CUDA events and host
+  clock), ``plan_int`` on the host clock, K3's pack by that host plan,
+  ``torch.aminmax`` over the same rows (a call, and 10 in a CUDA graph)
+  and, where the checkout has them, K3's stats, plan and pack launches
+  each alone (the stats launch also 10 in a graph, without the host),
   and K4 on K3's words (checked to give K3's input back);
 * text_to_minh: the 8 float columns of one row-block of 853,007 halos
   (two log columns, three periodic positions, three velocities);
@@ -43,7 +45,9 @@ paths: text_to_minh's two int columns of a row-block (2, 853,007),
 minh_to_bnd's ID column of 512 ragged cells at 20 bits and the same cells
 at 54 bits, and a multi-process rank's ID batch (3, 126,096) at 37 bits;
 where the checkout has K3's three launches, also those launches alone,
-20 times over in one CUDA graph, a replay over 20.  Each shape also gets
+20 times over in one CUDA graph, a replay over 20, and the call's stages
+on the host clock, median of 50: the check of lens, each launch until it
+returns, and the plan's read, which waits for the pack.  Each shape also gets
 its bound: the bytes of x (its live elements, for ints) and of the
 packed words over the H100's 3.35 TB/s of device memory.  The last lines
 are the nvidia-smi line and one JSON object.
@@ -134,7 +138,7 @@ def sass_counts(lib_path, nvcc):
             # a file-local function's name holds a hash of its build
             name = re.sub(r"__N__[0-9a-f]{8}_", "__N__", fn.group(1))
             counts[name] = 0
-        elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
             counts[name] += 1
     return counts
 
@@ -143,7 +147,8 @@ def measure(reps):
     import torch
 
     from minnow_torch.ops import _build, codec, decode, encode
-    from minnow_torch.utils.device import card_info, cuda_device, time_ms
+    from minnow_torch.utils.device import (card_info, cuda_device, graph_ms,
+                                           time_ms)
 
     dev = cuda_device()
     group = encode.encode_float_group
@@ -163,6 +168,32 @@ def measure(reps):
             torch.cuda.synchronize()
             ts.append((time.perf_counter() - t0) * 1e3)
         return float(np.median(ts[2:]))
+
+    def call_stages(x, lens, total, reps=50):
+        """Host-clock ms of each stage of the int encode's call, median
+        of ``reps``: the check of lens (two reads to the host), each of
+        the three launches (the call returns when the launch is queued),
+        and the plan's read (which waits for the pack)."""
+        names = ("check lens", "stats launch", "plan launch",
+                 "pack launch", "plan read")
+        ts = []
+        for _ in range(reps + 2):
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            encode._check_lens(lens, x.shape[1])
+            t.append(time.perf_counter())
+            stats = encode._launch_int_stats(x, lens)
+            t.append(time.perf_counter())
+            dplan = encode._launch_int_plan(stats, lens)
+            t.append(time.perf_counter())
+            encode._launch_int_pack(x, lens, dplan, total)
+            t.append(time.perf_counter())
+            encode.read_plan(dplan)
+            t.append(time.perf_counter())
+            ts.append(np.diff(t) * 1e3)
+        med = np.median(np.array(ts[2:]), axis=0)
+        return {"K3 call stage, host clock: " + k: float(v)
+                for k, v in zip(names, med)}
 
     out = {"card": card_info()}
     b, n = 4096, 1 << 17
@@ -213,11 +244,12 @@ def measure(reps):
     del words, w2d
     torch.cuda.empty_cache()
 
-    # K3 at 18 and at 54 bits, and K4 on its words
+    # K3 at 18, 37, 54 and 64 bits, and K4 on its words
     launches = hasattr(encode, "start_int_group")
-    for bits, lo in ((18, 1 << 53), (54, -(1 << 62))):
-        xi = torch.randint(0, 1 << bits, (b, n), generator=gen, device=dev,
-                           dtype=torch.int64) + lo
+    for bits, lo in ((18, 1 << 53), (37, -(1 << 62)), (54, -(1 << 62)),
+                     (64, -(1 << 63))):
+        xi = torch.randint(0, 1 << min(bits, 62), (b, n), generator=gen,
+                           device=dev, dtype=torch.int64) + lo
         xi[:, 0], xi[:, 1] = lo, lo + (1 << bits) - 1
         iwords, iplan = encode.encode_int_group(xi, lens)
         if not (iplan.bits == bits).all():
@@ -236,12 +268,18 @@ def measure(reps):
             dplan = encode.int_plan(istats, lens)
             t["K3 stats launch" + at] = time_ms(
                 lambda: encode.int_stats(xi, lens), reps)
+            t["K3 stats launch alone, graph of 10" + at] = graph_ms(
+                lambda: encode._launch_int_stats(xi, lens), 10, reps)
             t["K3 plan launch" + at] = time_ms(
                 lambda: encode.int_plan(istats, lens), reps)
             t["K3 pack launch" + at] = time_ms(
                 lambda: encode._launch_int_pack(xi, lens, dplan,
                                                 iplan.total), reps)
             del istats, dplan
+        t["torch.aminmax" + at] = time_ms(
+            lambda: torch.aminmax(xi, dim=1), reps)
+        t["torch.aminmax alone, graph of 10" + at] = graph_ms(
+            lambda: torch.aminmax(xi, dim=1), 10, reps)
         t["K3 bound" + at] = (xi.numel() * 8 + iwords.numel() * 4) \
             / 3.35e12 * 1e3
         out["K3 words checksum" + at] = int(iwords.to(torch.int64).sum())
@@ -286,11 +324,10 @@ def measure(reps):
             "words checksum": int(words.to(torch.int64).sum()),
             "widths": sorted({int(v) for v in plan.bits})}
         if launches:
-            from minnow_torch.utils.device import graph_ms
-
             out[name]["K3 launches, graph of 20"] = graph_ms(
                 lambda: encode._launch_int_encode(xt, lt, plan.total),
                 reps=reps)
+            out[name].update(call_stages(xt, lt, plan.total))
     out["SASS instructions"] = sass_counts(_build.load()._name,
                                            _build._nvcc())
     return out

@@ -287,13 +287,15 @@ def test_k3_matches_plain_and_spec(dev):
             spec.encode_int_block(x[i])
 
 
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize(
+    "case", range(len(chip_smoke.k3_batches(np.random.default_rng(9)))))
 def test_k3_launches_match_plain(dev, case):
     """The stats, plan and pack launches and the whole call against their
     plain versions on ``chip_smoke.py``'s batches: widths 1..64, then 1,
     18, 37, 54 and 64 bits on lengths 0, 1, 31, 32, 33, 2049 and 4097
-    with garbage past each length, then -2^63 beside 2^63 - 1; and
-    ``BlockEncoder`` on the card against ``spec``."""
+    with garbage past each length, then the tile cases (1, 31, 32, 33, 54,
+    63 and 64 bits on lengths 1 to 8193 at n = 8193 and 8194), then -2^63
+    beside 2^63 - 1; and ``BlockEncoder`` on the card against ``spec``."""
     x, lens = chip_smoke.k3_batches(np.random.default_rng(9))[case]
     chip_smoke.hold_k3(torch.from_numpy(x).to(dev),
                        torch.from_numpy(lens).to(dev), "case %d" % case)
@@ -326,6 +328,85 @@ def test_int_encode_refuses_a_capacity_too_small(dev):
     with pytest.raises(ValueError, match="capacity"):
         encode.encode_int_group(x, lens, capacity=plan.total - 1)
     torch.cuda.synchronize()
+
+
+def _unaligned(x, dev):
+    """``x`` on the card as a contiguous view that starts 8 bytes past a
+    16-byte boundary, as a slice of a wider buffer does."""
+    flat = torch.empty(x.size + 1, dtype=torch.int64, device=dev)[1:]
+    assert flat.data_ptr() % 16 == 8
+    flat.copy_(torch.from_numpy(x.reshape(-1)))
+    return flat.view(x.shape)
+
+
+@pytest.mark.parametrize("layout", ["aligned", "unaligned"])
+@pytest.mark.parametrize("bits", chip_smoke.TILE_WIDTHS)
+def test_tile_pack_matches_plain_on_tile_edges(dev, bits, layout):
+    """K3's tile pack on blocks of lengths 1..8193 (whole, ragged and
+    next-to-whole tiles) with garbage past them, at n = 8193 and 8194,
+    on rows as allocated and on a view 8 bytes off a 16-byte boundary:
+    the whole call, and the pack by a host plan whose minimums are not
+    the blocks' own, bitwise equal to the plain versions."""
+    lens = np.array(chip_smoke.TILE_LENS, np.int64)
+    rng = np.random.default_rng(bits)
+    for n in (8193, 8194):
+        x, _ = chip_smoke._k3_ragged(rng, bits, n, lens)
+        xt = (torch.from_numpy(x).to(dev) if layout == "aligned"
+              else _unaligned(x, dev))
+        lt = torch.from_numpy(lens).to(dev)
+        words, plan = chip_smoke.hold_k3(xt, lt, "%d bits, n %d" % (bits, n))
+        assert set(plan.bits[lens > 1]) == {bits}
+        # a host plan whose minimums lie one below the blocks' own: the
+        # largest delta then needs a bit more than the plan gives it
+        host = plan._replace(mins=plan.mins - 1)
+        _same(encode.delta_pack_int(xt, lt, host),
+              encode.delta_pack_int_plain(xt, lt, host))
+
+
+@pytest.mark.parametrize("n", [1, 7, 8193, 8194, 40001])
+def test_int_stats_on_odd_rows_and_empty_blocks(dev, n):
+    """K3's stats launch on odd and even n, aligned and 8 bytes off, with
+    empty blocks among live ones and random words in every padding; a
+    row of 40,001 spreads over five runs."""
+    rng = np.random.default_rng(n)
+    b = 9
+    x = rng.integers(-(1 << 63), (1 << 63) - 1, (b, n), dtype=np.int64,
+                     endpoint=True)
+    lens = rng.integers(0, n + 1, b).astype(np.int64)
+    lens[[0, 4]] = 0
+    lens[1] = n
+    for xt in (torch.from_numpy(x).to(dev), _unaligned(x, dev)):
+        lt = torch.from_numpy(lens).to(dev)
+        stats = encode.int_stats(xt, lt)
+        _same(stats.view(torch.int32), encode.int_stats_plain(
+            xt, lt).view(torch.int32))
+        assert (stats.cpu()[[0, 4]] == 0).all()
+
+
+def test_pack_batch_on_unaligned_rows(dev):
+    """``pack_batch`` at widths 1..32 on even rows 8 bytes off a 16-byte
+    boundary, against the plain version on the same values."""
+    rng = np.random.default_rng(13)
+    x = rng.integers(0, 1 << 32, (3, 4098), dtype=np.int64)
+    xt = _unaligned(x, dev)
+    for bits in range(1, 33):
+        _same(encode.pack_batch(xt, bits).cpu(),
+              encode.pack_batch(torch.from_numpy(x), bits))
+
+
+def test_host_plan_past_its_total_raises(dev):
+    """A host plan in which a middle block's stream ends past the plan's
+    total is refused before anything is launched, as on the CPU."""
+    x, lens = chip_smoke.k3_tile_batches(np.random.default_rng(3))[0]
+    xt, lt = torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev)
+    plan = encode.read_plan(encode.int_plan(encode.int_stats(xt, lt), lt))
+    last = int(plan.offsets[4])  # block 4 of 10 moves past the end
+    bad = plan._replace(offsets=np.where(np.arange(10) == 4, plan.total,
+                                         plan.offsets))
+    before = encode.K3_LAUNCHES
+    with pytest.raises(ValueError, match="block 4's stream"):
+        encode.delta_pack_int(xt, lt, bad)
+    assert encode.K3_LAUNCHES == before and last < plan.total
 
 
 def test_block_encoder_float_on_card_matches_spec(dev):
