@@ -23,11 +23,13 @@ import sys
 
 from ..ingest import lgadget2, snapshot
 from ..parallel.pipeline import BlockEncoder
+from ..utils import profiling
 from ..utils.device import cuda_device
 
 __all__ = ["to_minp", "to_lgadget2", "main"]
 
 
+@profiling.traced("convert_snapshot.to_minp")
 def to_minp(in_dir: str, out_dir: str, file_cells: int, sub_cells: int,
             dx: float, dv: float, device=None) -> None:
     """Convert the LGadget-2 snapshot in ``in_dir`` to a minp fileset in

@@ -46,6 +46,7 @@ import numpy as np
 from ..formats import minh
 from ..ingest import rockstar
 from ..utils import config as cfgmod
+from ..utils import profiling
 from ..utils import sched
 from ..parallel.pipeline import BlockEncoder
 from ..utils.device import cuda_device
@@ -149,6 +150,7 @@ def out_name(out_dir: str, hlist: str) -> str:
     return os.path.join(out_dir, ".".join(toks))
 
 
+@profiling.traced("text_to_minh.convert_file")
 def convert_file(cfg, idx, types, wanted, hlist, out, device=None,
                  threads=THREADS, timer=None, block_size=None, encoder=None):
     """(ref text_to_minh.go:166-214).  ``device`` is the torch device that
@@ -159,8 +161,9 @@ def convert_file(cfg, idx, types, wanted, hlist, out, device=None,
     ``timer`` (optional
     utils.profiling.StageTimer) collects per-stage seconds/GBps:
     read / scan_lines / parse (inside the text reader, possibly on the
-    prefetch thread), parse_wait (pipeline bubble on the main thread),
-    encode+write, finalize.
+    prefetch thread), mass_cut, encode+write.  Every call also records
+    its spans (``utils.profiling``), ``text_to_minh.convert_file`` the
+    root.
 
     ``block_size`` caps the text-block size in bytes so parsing block
     b+1 overlaps encoding block b even within one file.  Default None =
@@ -222,38 +225,36 @@ def convert_file(cfg, idx, types, wanted, hlist, out, device=None,
     # ref text_to_minh.go:208-212)
     from concurrent.futures import ThreadPoolExecutor
 
-    import time as _time
-
     n_blocks = fr.blocks()
+    # the prefetch thread's spans have this call's as their parent
+    block = profiling.carry(fr.block)
     # prefetch depth 1: exactly one text block parses ahead of the
     # encode.  Depth 2 was measured SLOWER on the 4-core host (two
     # 16-thread parses contend with the writer's 4 encode threads:
     # 231 vs 240 MB/s mean over 3 runs) -- don't deepen it again.
     with ThreadPoolExecutor(max_workers=1) as pool:
-        fut = pool.submit(fr.block, 0, names, dtypes)
+        fut = pool.submit(block, 0, names, dtypes)
         for b in range(n_blocks):
-            t0 = _time.perf_counter()
-            data = fut.result()
-            t1 = _time.perf_counter()
-            if b + 1 < n_blocks:
-                fut = pool.submit(fr.block, b + 1, names, dtypes)
-            mass = data[cfg["MassName"]]
-            keep = mass > cutoff  # (ref text_to_minh.go:271-288)
-            if keep.any():
-                block_cols = [data[n][keep] for n in names]
-                t2 = _time.perf_counter()
-                fm.block(block_cols)
-                if timer is not None:
-                    t3 = _time.perf_counter()
-                    nbytes = sum(c.nbytes for c in block_cols)
-                    timer.add("parse_wait", t1 - t0)
-                    timer.add("mass_cut", t2 - t1)
-                    timer.add("encode+write", t3 - t2, nbytes)
-    t0 = _time.perf_counter()
+            # the main thread's wait names the device's idle gap in a
+            # trace: the profiler sees no span of the prefetch thread
+            with profiling.span("text_to_minh.parse_wait"):
+                data = fut.result()
+            with profiling.span("text_to_minh.mass_cut", 0, timer,
+                                "mass_cut"):
+                if b + 1 < n_blocks:
+                    fut = pool.submit(block, b + 1, names, dtypes)
+                mass = data[cfg["MassName"]]
+                keep = mass > cutoff  # (ref text_to_minh.go:271-288)
+                block_cols = ([data[n][keep] for n in names]
+                              if keep.any() else None)
+            if block_cols is not None:
+                with profiling.span(
+                        "text_to_minh.encode_write",
+                        sum(c.nbytes for c in block_cols), timer,
+                        "encode+write"):
+                    fm.block(block_cols)
     fm.close()
     fr.close()
-    if timer is not None:
-        timer.add("finalize", _time.perf_counter() - t0)
 
 
 class _DeviceMinhWriter:
@@ -313,19 +314,20 @@ class _DeviceMinhWriter:
                 encoded[i] = (enc.payloads[row], enc.mins[row],
                               enc.bits[row])
 
-        for i, x in enumerate(cols):
-            col = wr.cols[i]
-            if ctypes_.is_fixed(col.type):
-                wr.f.fixed_size_group(col.type, n)
-                wr.f.data(np.asarray(x, ctypes_.group_dtype(col.type)))
-            elif col.type == minh.Int:
-                wr.f.int_group(n)
-                payload, mn, bits = encoded[i]
-                wr.f.data_encoded(payload, int(mn), int(bits))
-            elif col.type == minh.Float:
-                wr.f.float_group(n, (col.low, col.high), col.dx)
-                payload, mn, bits = encoded[i]
-                wr.f.data_encoded(payload, int(mn), int(bits))
+        with profiling.span("container.write"):
+            for i, x in enumerate(cols):
+                col = wr.cols[i]
+                if ctypes_.is_fixed(col.type):
+                    wr.f.fixed_size_group(col.type, n)
+                    wr.f.data(np.asarray(x, ctypes_.group_dtype(col.type)))
+                elif col.type == minh.Int:
+                    wr.f.int_group(n)
+                    payload, mn, bits = encoded[i]
+                    wr.f.data_encoded(payload, int(mn), int(bits))
+                elif col.type == minh.Float:
+                    wr.f.float_group(n, (col.low, col.high), col.dx)
+                    payload, mn, bits = encoded[i]
+                    wr.f.data_encoded(payload, int(mn), int(bits))
 
     def close(self):
         self.wr.close()

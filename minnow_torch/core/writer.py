@@ -24,6 +24,7 @@ import struct
 import numpy as np
 
 from . import groups as _groups
+from ..utils import profiling
 from .types import MAGIC, VERSION, is_fixed, type_match
 
 
@@ -142,6 +143,7 @@ class Writer:
 
     # -- finalize -----------------------------------------------------------
 
+    @profiling.traced("container.close")
     def close(self) -> None:
         """Write tail arrays, per-group tails, then the real header
         (ref go/writer.go:107-141)."""

@@ -31,6 +31,7 @@ import torch
 
 from ..core.types import FLOAT_GROUP, INT_GROUP
 from ..ops import codec, decode, selfcheck
+from ..utils import profiling
 
 __all__ = ["Blocks", "Staged", "tail_blocks", "read_span", "read_payloads",
            "stage", "stage_columns", "decode_columns", "read_columns",
@@ -59,6 +60,7 @@ class Blocks(NamedTuple):
         return (self.bits * self.lens + 7) // 8
 
 
+@profiling.traced("read.tail")
 def tail_blocks(f, ids) -> Blocks:
     """The :class:`Blocks` of the container blocks ``ids`` of the open
     ``core.reader.Reader`` ``f``, all of int groups or all of float
@@ -115,8 +117,9 @@ def read_span(f, columns):
     if not starts.size:
         return np.zeros(0, np.uint8), 0
     s0, s1 = int(starts.min()), int(ends.max())
-    f.f.seek(s0)
-    data = f.f.read(s1 - s0)
+    with profiling.span("read.span", s1 - s0):
+        f.f.seek(s0)
+        data = f.f.read(s1 - s0)
     if len(data) != s1 - s0:
         raise ValueError("file ends %d bytes into a span of %d"
                          % (len(data), s1 - s0))
@@ -139,6 +142,14 @@ def stage(device, arrays):
     ``device``, by one host->device copy: the arrays lie back to back in
     one byte buffer, each at an 8-byte boundary, and the tensors are
     views of its copy."""
+    with profiling.span("read.stage"):
+        staging = _staging(arrays)
+    return _copy(staging, device)
+
+
+def _staging(arrays):
+    """``(buf, arrays, offsets)``: the arrays, contiguous, back to back
+    in one byte buffer, each at an 8-byte boundary (its offset)."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
     offsets, end = [], 0
     for a in arrays:
@@ -147,7 +158,15 @@ def stage(device, arrays):
     buf = np.zeros(end, np.uint8)
     for a, o in zip(arrays, offsets):
         buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
-    on_dev = torch.from_numpy(buf).to(device)
+    return buf, arrays, offsets
+
+
+def _copy(staging, device):
+    """The arrays of :func:`_staging` on ``device``: one copy of its
+    buffer, and views of it."""
+    buf, arrays, offsets = staging
+    with profiling.span("read.copy", buf.nbytes):
+        on_dev = torch.from_numpy(buf).to(device)
     return [on_dev[o:o + a.nbytes].view(
         torch.from_numpy(a[:0].reshape(-1)).dtype).reshape(a.shape)
         for a, o in zip(arrays, offsets)]
@@ -183,38 +202,40 @@ def stage_columns(span, columns, device, dither: str = "none",
     host->device copy: ``(src, [Staged, ...])``, ``src`` the span as
     int32 words.  The span is padded to whole words and 8 bytes more, so
     a kernel's reads of a block's last words never leave it."""
-    span = np.asarray(span, np.uint8).reshape(-1)
-    for c in columns:
-        _check_blocks(c, span.size)
-    src = np.zeros(-(-span.size // 4) + 2, np.int32)
-    src.view(np.uint8)[:span.size] = span
-    cat = [np.concatenate([getattr(c, k) for c in columns]
-                          or [np.zeros(0, np.int64)]).astype(np.int64)
-           for k in ("start", "bits", "lens", "mins")]
-    out_off = np.concatenate([np.cumsum(c.lens) - c.lens for c in columns]
-                             or [np.zeros(0, np.int64)]).astype(np.int64)
-    arrays = [src, cat[0] * 8, cat[1], cat[2], out_off, cat[3]]
-    floats = [c for c in columns if c.config is not None]
-    if floats:
-        b = cat[0].size
+    with profiling.span("read.stage"):
+        span = np.asarray(span, np.uint8).reshape(-1)
+        for c in columns:
+            _check_blocks(c, span.size)
+        src = np.zeros(-(-span.size // 4) + 2, np.int32)
+        src.view(np.uint8)[:span.size] = span
+        cat = [np.concatenate([getattr(c, k) for c in columns]
+                              or [np.zeros(0, np.int64)]).astype(np.int64)
+               for k in ("start", "bits", "lens", "mins")]
+        out_off = np.concatenate([np.cumsum(c.lens) - c.lens for c in columns]
+                                 or [np.zeros(0, np.int64)]).astype(np.int64)
+        arrays = [src, cat[0] * 8, cat[1], cat[2], out_off, cat[3]]
+        floats = [c for c in columns if c.config is not None]
+        if floats:
+            b = cat[0].size
 
-        def config(i, dtype):
-            a = np.zeros(b, dtype)
-            end = 0
-            for c in columns:
-                if c.config is not None:
-                    a[end:end + c.start.size] = c.config[i]
-                end += c.start.size
-            return a
+            def config(i, dtype):
+                a = np.zeros(b, dtype)
+                end = 0
+                for c in columns:
+                    if c.config is not None:
+                        a[end:end + c.start.size] = c.config[i]
+                    end += c.start.size
+                return a
 
-        # the rows of int columns get a config no launch reads (1 pixel)
-        arrays += codec.block_config(
-            config(0, np.float32), config(1, np.float32),
-            np.maximum(config(2, np.int64), 1), config(3, bool))
-        if dither == "uniform":
-            arrays += codec.dither_keys_np(
-                np.concatenate([c.ids for c in columns]), seed)
-    on_dev = stage(device, arrays)
+            # the rows of int columns get a config no launch reads (1 pixel)
+            arrays += codec.block_config(
+                config(0, np.float32), config(1, np.float32),
+                np.maximum(config(2, np.int64), 1), config(3, bool))
+            if dither == "uniform":
+                arrays += codec.dither_keys_np(
+                    np.concatenate([c.ids for c in columns]), seed)
+        staging = _staging(arrays)
+    on_dev = _copy(staging, device)
     staged, end = [], 0
     for c in columns:
         rows = slice(end, end + c.start.size)
@@ -256,11 +277,17 @@ def read_columns(f, columns, device, dither: str = "none", seed: int = 0):
     """Decode the container blocks of ``f`` listed in ``columns`` (one
     list of block indices a column, each all int or all float blocks) on
     ``device``: one read of the span that holds them, one host->device
-    copy, one launch a column.  Returns a flat tensor a column."""
-    blocks = [tail_blocks(f, ids) for ids in columns]
-    span, s0 = read_span(f, blocks)
-    blocks = [b._replace(start=b.start - s0) for b in blocks]
-    return decode_columns(span, blocks, device, dither, seed)
+    copy, one launch a column.  Returns a flat tensor a column.  Its span
+    ``read.columns`` counts the process's minor page faults over the
+    call (``minor_faults``)."""
+    with profiling.span("read.columns") as sp:
+        faults = profiling.minor_faults()
+        blocks = [tail_blocks(f, ids) for ids in columns]
+        span, s0 = read_span(f, blocks)
+        blocks = [b._replace(start=b.start - s0) for b in blocks]
+        out = decode_columns(span, blocks, device, dither, seed)
+        sp.counts["minor_faults"] = profiling.minor_faults() - faults
+    return out
 
 
 def _put_words(words, mins, device):

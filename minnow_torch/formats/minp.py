@@ -30,6 +30,7 @@ import numpy as np
 
 from ..core.writer import Writer as MinnowWriter
 from ..core.reader import Reader as MinnowReader
+from ..utils import profiling
 
 MAGIC = 0xBADF00D
 VERSION = 0
@@ -193,7 +194,11 @@ class Writer:
                 "len(vec) = %d, but NSide = %d and FileCells = %d"
                 % (len(vec), self.hd.n_side, self.cell.file_cells))
         s = self.cell.sub_cells
-        blocks = split_sub_cells(vec, s)  # (S^3, nSub^3, 3)
+        with profiling.span("minp.split_sub_cells", vec.nbytes):
+            blocks = split_sub_cells(vec, s)  # (S^3, nSub^3, 3)
+            if self.encoder is not None:
+                # each axis's blocks contiguous, as a batch is encoded
+                axes = np.ascontiguousarray(blocks.transpose(2, 0, 1))
         n_sub3 = blocks.shape[1]
         for k in range(3):
             # clamp_q only for non-periodic data: guards the reference's
@@ -207,8 +212,7 @@ class Writer:
                 pixels = _spec.float_group_pixels(mins[k], maxs[k],
                                                   self.dx)
                 enc = self.encoder.encode_float_blocks(
-                    np.ascontiguousarray(blocks[:, :, k]),
-                    mins[k], maxs[k], pixels,
+                    axes[k], mins[k], maxs[k], pixels,
                     clamp_q=not self.periodic)
                 enc.write_to(self.f)
             else:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.device import cuda_device
 from .device_common import read_columns
 
@@ -35,6 +36,7 @@ def _join_sub_cells(blocks, s: int):
     return g.permute(0, 3, 1, 4, 2, 5, 6).reshape(s * s * s * n3, 3)
 
 
+@profiling.traced("minp_device.read_vectors")
 def read_vectors(reader, device=None, dither: str = None,
                  seed: int = None):
     """The vectors of a ``minp.Reader``, decoded on ``device`` (default:

@@ -27,6 +27,7 @@ import struct
 import numpy as np
 
 from ..formats import minp as minp_fmt
+from ..utils import profiling
 from . import snapshot as snap_mod
 
 _HEADER_SIZE = 256
@@ -160,6 +161,7 @@ class LGadget2Snapshot(snap_mod.Snapshot):
         count = gh.particle_count(self.n_part_num)
         return f, gh, count
 
+    @profiling.traced("lgadget2.read")
     def read_x(self, i):
         f, gh, count = self._open_data(i)
         with f:
@@ -175,6 +177,7 @@ class LGadget2Snapshot(snap_mod.Snapshot):
                                   % self.filenames[i])
         return x
 
+    @profiling.traced("lgadget2.read")
     def read_v(self, i):
         f, gh, count = self._open_data(i)
         with f:
@@ -188,6 +191,7 @@ class LGadget2Snapshot(snap_mod.Snapshot):
                                   % self.filenames[i])
         return v
 
+    @profiling.traced("lgadget2.read")
     def read_id(self, i):
         f, gh, count = self._open_data(i)
         with f:

@@ -25,6 +25,7 @@ import os
 import numpy as np
 
 from ..formats import minp as minp_fmt
+from ..utils import profiling
 
 # rho_critical(z=0) in (Msun/h) / (Mpc/h)^3 (h-free comoving units), the
 # standard 3 H0^2 / (8 pi G) constant used by nbody-utils
@@ -168,8 +169,10 @@ class Grid(Snapshot):
         for f in range(self.snap.files()):
             vec = np.asarray(read(f), np.float32)
             ids = np.asarray(self.snap.read_id(f), np.int64)
-            c, i = self._cell_index(ids - 1)  # ids are 1-based
-            grid[c, i] = vec
+            with profiling.span("grid.cell_index"):
+                c, i = self._cell_index(ids - 1)  # ids are 1-based
+            with profiling.span("grid.scatter", vec.nbytes):
+                grid[c, i] = vec
         return grid
 
     def read_x(self, i):

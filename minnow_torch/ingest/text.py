@@ -21,6 +21,7 @@ import io
 import numpy as np
 
 from .. import native
+from ..utils import profiling
 
 
 @dataclass
@@ -125,8 +126,10 @@ class Reader:
         self.threads = n
 
     def set_timer(self, timer) -> None:
-        """Attach a utils.profiling.StageTimer; block() then records
-        read/scan/parse stage times (BASELINE.md per-stage GB/s)."""
+        """Attach a utils.profiling.StageTimer; block() then adds its
+        spans ``text.read``, ``text.scan_lines`` and ``text.parse`` to the
+        stages ``read``, ``scan_lines`` and ``parse`` (BASELINE.md
+        per-stage GB/s)."""
         self.timer = timer
 
     def blocks(self) -> int:
@@ -148,43 +151,37 @@ class Reader:
         ``{name: array}``."""
         if dtypes is None:
             dtypes = [np.float32] * len(names)
-        import time as _time
+        timer = self.timer
+        with profiling.span("text.read", 0, timer, "read") as sp:
+            with self._read_lock:
+                self.f.seek(self.block_starts[b])
+                buf = self.f.read(self.block_sizes[b])
+            sp.nbytes = len(buf)
 
-        t0 = _time.perf_counter()
-        with self._read_lock:
-            self.f.seek(self.block_starts[b])
-            buf = self.f.read(self.block_sizes[b])
-        t1 = _time.perf_counter()
+        with profiling.span("text.scan_lines", len(buf), timer, "scan_lines"):
+            starts, ends = _data_line_spans(buf, self.config.comment,
+                                            threads=self.threads)
+        with profiling.span("text.parse", len(buf), timer, "parse"):
+            col_idx = [self._name_index(n) for n in names]
+            # integer columns take the exact int64 parse path (reference
+            # strconv.Atoi, ref go/text/parse.go:118-121): IDs above 2^53
+            # keep their low bits, and float syntax in an int column errors.
+            # float32 columns (the common case) narrow inside the parser --
+            # same one rounding as the old astype pass, minus the pass.
+            def _kind(d):
+                d = np.dtype(d)
+                if np.issubdtype(d, np.integer):
+                    return 1
+                return 2 if d == np.float32 else 0
 
-        starts, ends = _data_line_spans(buf, self.config.comment,
-                                        threads=self.threads)
-        t2 = _time.perf_counter()
-
-        col_idx = [self._name_index(n) for n in names]
-        # integer columns take the exact int64 parse path (reference
-        # strconv.Atoi, ref go/text/parse.go:118-121): IDs above 2^53
-        # keep their low bits, and float syntax in an int column errors.
-        # float32 columns (the common case) narrow inside the parser --
-        # same one rounding as the old astype pass, minus the pass.
-        def _kind(d):
-            d = np.dtype(d)
-            if np.issubdtype(d, np.integer):
-                return 1
-            return 2 if d == np.float32 else 0
-
-        kinds = [_kind(d) for d in dtypes]
-        cols = native.parse_columns(buf, starts, ends, col_idx,
-                                    threads=self.threads,
-                                    sep=self.config.separator,
-                                    kinds=kinds)
-        out = {}
-        for name, dtype, col in zip(names, dtypes, cols):
-            out[name] = col if col.dtype == dtype else col.astype(dtype)
-        if self.timer is not None:
-            t3 = _time.perf_counter()
-            self.timer.add("read", t1 - t0, len(buf))
-            self.timer.add("scan_lines", t2 - t1, len(buf))
-            self.timer.add("parse", t3 - t2, len(buf))
+            kinds = [_kind(d) for d in dtypes]
+            cols = native.parse_columns(buf, starts, ends, col_idx,
+                                        threads=self.threads,
+                                        sep=self.config.separator,
+                                        kinds=kinds)
+            out = {}
+            for name, dtype, col in zip(names, dtypes, cols):
+                out[name] = col if col.dtype == dtype else col.astype(dtype)
         return out
 
     def close(self) -> None:

@@ -42,6 +42,7 @@ from ..core import spec
 from ..formats.device_common import Blocks, decode_columns
 from ..ops import bitpack, codec, encode, selfcheck
 from ..ops._launch import COUNT_LOCK
+from ..utils import profiling
 from ..utils.device import cuda_device
 from . import mesh
 
@@ -78,6 +79,7 @@ class EncodedBlocks:
     def total_bytes(self) -> int:
         return int(self.sizes.sum())
 
+    @profiling.traced("container.write")
     def write_to(self, writer) -> None:
         """Append all blocks to the current group of a core Writer through
         its pre-encoded path (``Writer.data_encoded``)."""
@@ -153,6 +155,7 @@ class BlockEncoder:
     def _put(a, device):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    @profiling.traced("encoder.payloads")
     def _read_payloads(self, shares, encoded, lens) -> list:
         """The payload bytes of every share's ``(words, plan)``, in block
         order."""
@@ -165,6 +168,7 @@ class BlockEncoder:
 
     # -- encode ------------------------------------------------------------
 
+    @profiling.traced("encoder.encode_int")
     def encode_int_blocks(self, x, lens=None) -> EncodedBlocks:
         """Encode (B, N) int64 blocks (ref go/group.go:242-255)."""
         x, b, n, lens = self._as_batch(x, lens, np.int64)
@@ -187,6 +191,7 @@ class BlockEncoder:
                              np.concatenate([p.mins for p in plans]),
                              np.concatenate([p.bits for p in plans]), lens)
 
+    @profiling.traced("encoder.encode_float")
     def encode_float_blocks(self, x, low, high, pixels, lens=None,
                             periodic=True,
                             clamp_q: bool = False) -> EncodedBlocks:
