@@ -87,7 +87,11 @@ Phases, each of which raises at its first failure:
    lattice positions with Gaussian displacements and collapsed clusters;
    Gaussian velocities) through ``convert_snapshot to_minp --device`` at
    2 file cells and 8 sub-cells (16 files of 2^21 particles, 3 x 512
-   blocks of 4,096 each), every file byte-compared with the host mode's;
+   blocks of 4,096 each), re-binned on the card (one launch of
+   ``csrc/rebin.cu`` a source file, 8 in all, the 8 cells one batch;
+   the kernel also against its plain version and timed at the snapshot
+   cell's shape, into the kernels line), every file byte-compared with
+   the host mode's;
    every file read back on the card with
    ``read_vectors`` in ``uniform``, one x and one v file also in ``none``
    and ``midpoint``, bitwise equal to the host reader, one K2 launch a
@@ -185,7 +189,8 @@ from minnow_torch.formats import minh, minh_device, minp  # noqa: E402
 from minnow_torch.formats import minp_device  # noqa: E402
 from minnow_torch.ingest import lgadget2, snapshot  # noqa: E402
 from minnow_torch.ops import _build, bitpack, codec, decode  # noqa: E402
-from minnow_torch.ops import encode, selfcheck, validate  # noqa: E402
+from minnow_torch.ops import encode, rebin, selfcheck  # noqa: E402
+from minnow_torch.ops import validate  # noqa: E402
 from minnow_torch.parallel import pipeline  # noqa: E402
 from minnow_torch.parallel.pipeline import BlockEncoder  # noqa: E402
 from minnow_torch.tools import dryrun  # noqa: E402
@@ -2176,11 +2181,53 @@ def check_snapshot_shapes(dev, gadget):
     log_float("the snapshot path's shapes", floats)
 
 
-def snapshot_path(dev):
+def rebin_timed(dev, gadget, results):
+    """The re-binning kernel against its plain version on the card at the
+    snapshot cell's shape: one source file's 2.1 M particles into one
+    256^3 file cell (``ops.rebin.Batch``), bitwise, and timed (CUDA
+    events, median of 7; the plain version of 3; each call after a clear
+    of the batch's marks, 2 MB).  Its bound counts the inputs read once
+    (an ID and two vectors, 32 bytes a particle) and each scattered write
+    at its 32-byte sector (a position, a velocity and a mark's word).
+    Goes into the kernels line."""
+    snap = lgadget2.LGadget2Snapshot(gadget)
+    ids, x, v = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        snap.read_id(0), snap.read_x(0), snap.read_v(0)))
+    m = len(ids)
+    kernel, plain = (rebin.Batch(SNAP_SIDE, 1, 0, 1, dev) for _ in range(2))
+    kernel.add(ids, x, v)
+    rebin.rebin_plain(plain, ids, x, v)
+    kernel.check()
+    plain.check()
+    for what in ("x", "v", "marks", "error"):
+        if not torch.equal(getattr(kernel, what), getattr(plain, what)):
+            raise AssertionError("rebin kernel and plain version differ: "
+                                 "%s" % what)
+
+    def again(batch, fn):  # the marks cleared, so each call does it all
+        batch.marks.zero_()
+        fn(batch)
+
+    ms = time_ms(lambda: again(kernel, lambda b: b.add(ids, x, v)))
+    plain_ms = time_ms(lambda: again(plain, lambda b: rebin.rebin_plain(
+        b, ids, x, v)), reps=3, warmup=1)
+    moved = m * (8 + 24) + m * 3 * 32
+    results["rebin"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0,
+                            **bound(moved, 0))
+    log("rebin at the snapshot cell's shape (%d particles, one %d^3 cell): "
+        "kernel %.4f ms, plain %.4f ms, bound %.4f ms (%d bytes, the "
+        "scattered writes at 32-byte sectors); bitwise equal"
+        % (m, SNAP_SIDE, ms, plain_ms, results["rebin"]["bound_ms"], moved))
+    del kernel, plain
+
+
+def snapshot_path(dev, results):
     """Phase 6: a 256^3-particle LGadget-2 snapshot to minp with
     ``convert_snapshot --device``, byte-compared with the same converter
     in host mode, and read back on the card with ``read_vectors``, bitwise
-    equal to the host reader and within dx, dv of the source."""
+    equal to the host reader and within dx, dv of the source.  The
+    re-binning kernel's entry of the kernels line goes into
+    ``results``."""
     work = os.path.join(WORK, "snapshot")
     gadget, dev_dir, host_dir = (os.path.join(work, d)
                                  for d in ("gadget", "device", "host"))
@@ -2191,15 +2238,23 @@ def snapshot_path(dev):
     log("snapshot path: %d^3 particles in %d LGadget-2 files written in "
         "%.2f s" % (SNAP_SIDE, SNAP_FILES, time.perf_counter() - t0))
     check_snapshot_shapes(dev, gadget)
+    rebin_timed(dev, gadget, results)
 
     # the counts start at zero here: this path must launch K1 and K2
     reset_counts()
     t_start = time.perf_counter()
     args = [str(a) for a in (FILE_CELLS, SUB_CELLS, SNAP_DX, SNAP_DV)]
     t0 = time.perf_counter()
+    rebins = rebin.REBIN_LAUNCHES
     convert_snapshot.main(["to_minp", gadget, dev_dir, *args, "--device"])
     torch.cuda.synchronize()
     t_dev = time.perf_counter() - t0
+    rebins = rebin.REBIN_LAUNCHES - rebins
+    if rebins != SNAP_FILES:
+        raise AssertionError("to_minp --device re-binned with %d launches, "
+                             "not one a source file (one batch of cells)"
+                             % rebins)
+    results["rebin"]["launches"] = rebins
     t0 = time.perf_counter()
     convert_snapshot.main(["to_minp", gadget, host_dir, *args])
     t_host = time.perf_counter() - t0
@@ -2210,9 +2265,9 @@ def snapshot_path(dev):
                              % (sorted(os.listdir(dev_dir)), names))
     size = sum(same_file(os.path.join(dev_dir, f), os.path.join(host_dir, f),
                          "convert_snapshot --device, %s" % f) for f in names)
-    log("convert_snapshot to_minp --device: %.3f s; host mode: %.3f s; "
-        "%d files byte-identical (%d bytes)"
-        % (t_dev, t_host, len(names), size))
+    log("convert_snapshot to_minp --device: %.3f s (%d re-binning "
+        "launches); host mode: %.3f s; %d files byte-identical (%d bytes)"
+        % (t_dev, rebins, t_host, len(names), size))
 
     reads = []  # (mode, seconds on the card, seconds on the host)
     for f in names:
@@ -2671,7 +2726,7 @@ def main():
     second = boundary_path(dev)
     log("phase 5: %.1f s" % (time.perf_counter() - t0))
     t0 = time.perf_counter()
-    third = snapshot_path(dev)
+    third = snapshot_path(dev, results)
     log("phase 6: %.1f s" % (time.perf_counter() - t0))
     t0 = time.perf_counter()
     fourth = multiprocess_path(dev)
@@ -2715,6 +2770,11 @@ def main():
                     route="cuda", source=sources[k][1],
                     replaces=sources[k][2], launches=launches[k],
                     **results[k]) for k in sources]
+    kernels.append(dict(name="rebin rebin", route="cuda",
+                        source="minnow_torch/csrc/rebin.cu",
+                        replaces="none: the host's re-binning by ID "
+                        "(minnow_tpu/ingest/snapshot.py Grid._build)",
+                        **results["rebin"]))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,10 +9,15 @@ Usage:
   python -m minnow_torch.cli.convert_snapshot to_lgadget2 <in_dir> \\
       <fname_fmt> <out_dir>
 
-Without ``--device`` the host writer encodes the minp files.  With
-``--device`` each file's vectors are encoded on the CUDA device, one
-batch of sub-cell blocks per axis (the port's ``BlockEncoder``, kernel
-K1); without a CUDA device ``--device`` is an error.  The files are
+Without ``--device`` the host re-bins the particles by ID and the host
+writer encodes the minp files.  With ``--device`` the particles are
+re-binned on the CUDA device a batch of file cells at a time, as many as
+half its free memory holds (``csrc/rebin.cu``, one launch a source file
+and batch, positions and velocities at once), and stay there: each
+file's bounds and sub-cell split are taken there, and its vectors
+encoded there, one batch of sub-cell blocks per axis (the port's
+``BlockEncoder``, kernel K1); without a CUDA device ``--device`` is an
+error.  The files are
 byte-identical to the host writer's.  ``to_lgadget2`` is a host
 conversion, which has no device mode.
 """
@@ -34,8 +39,9 @@ def to_minp(in_dir: str, out_dir: str, file_cells: int, sub_cells: int,
             dx: float, dv: float, device=None) -> None:
     """Convert the LGadget-2 snapshot in ``in_dir`` to a minp fileset in
     ``out_dir`` (``x_<i>.minp`` and ``v_<i>.minp``).  ``device`` is the
-    torch device that encodes the vectors (a CUDA device runs K1,
-    ``"cpu"`` its plain version), or None for the host writer."""
+    torch device that re-bins and encodes the vectors (a CUDA device runs
+    the kernels, ``"cpu"`` their plain versions), or None for the host
+    route."""
     snap = lgadget2.LGadget2Snapshot(in_dir)
     encoder = None if device is None else BlockEncoder(device)
     snapshot.write_minp(out_dir, "%s_%d.minp", file_cells, sub_cells, dx,

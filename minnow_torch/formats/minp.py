@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import struct
 
 import numpy as np
+import torch
 
 from ..core.writer import Writer as MinnowWriter
 from ..core.reader import Reader as MinnowReader
@@ -95,25 +96,42 @@ class Cell:
         return cls(*struct.unpack(_CELL_FMT, raw))
 
 
+def _sub_cell_side(length: int, sub_cells: int) -> int:
+    """nSub, the side of a sub-cell, for ``length`` vectors of a file."""
+    n_file = round(length ** (1 / 3))
+    while n_file ** 3 < length:
+        n_file += 1
+    if n_file ** 3 != length:
+        raise ValueError("len(vec)=%d is not a cube" % length)
+    n = n_file // sub_cells
+    if n * sub_cells != n_file:
+        raise ValueError("subCells=%d does not divide nFile=%d"
+                         % (sub_cells, n_file))
+    return n
+
+
 def split_sub_cells(vec, sub_cells: int, xp=np):
     """(nFile**3, 3) row-major vectors -> (subCells**3, nSub**3, 3) sub-cell
     blocks, matching the reference's getSubCell element order
     (ref go/minp/minp.go:246-264).  Pure reshape/transpose -- one
     strided copy, not 2*nFile**3 scalar loop iterations."""
     vec = xp.asarray(vec)
-    n_file = round(len(vec) ** (1 / 3))
-    while n_file ** 3 < len(vec):
-        n_file += 1
-    if n_file ** 3 != len(vec):
-        raise ValueError("len(vec)=%d is not a cube" % len(vec))
     s = sub_cells
-    n = n_file // s
-    if n * s != n_file:
-        raise ValueError("subCells=%d does not divide nFile=%d"
-                         % (s, n_file))
+    n = _sub_cell_side(len(vec), s)
     g = vec.reshape(s, n, s, n, s, n, 3)  # (sz, jz, sy, jy, sx, jx, k)
     g = g.transpose(0, 2, 4, 1, 3, 5, 6)  # (sz, sy, sx, jz, jy, jx, k)
     return g.reshape(s * s * s, n * n * n, 3)
+
+
+def split_axes(vec, sub_cells: int):
+    """The blocks of :func:`split_sub_cells` of a (nFile**3, 3) tensor,
+    axis first: (3, subCells**3, nSub**3), contiguous, on the tensor's
+    device (one copy there)."""
+    s = sub_cells
+    n = _sub_cell_side(len(vec), s)
+    g = vec.reshape(s, n, s, n, s, n, 3)  # (sz, jz, sy, jy, sx, jx, k)
+    g = g.permute(6, 0, 2, 4, 1, 3, 5)  # (k, sz, sy, sx, jz, jy, jx)
+    return g.contiguous().view(3, s * s * s, n * n * n)
 
 
 def join_sub_cells(blocks, sub_cells: int, xp=np):
@@ -175,15 +193,28 @@ class Writer:
 
     def vectors(self, vec) -> None:
         """Write an (N, 3) float32 vector array as 3 k-major float groups of
-        sub-cell blocks (ref go/minp/minp.go:86-119)."""
-        vec = np.asarray(vec, dtype=np.float32)
+        sub-cell blocks (ref go/minp/minp.go:86-119).
+
+        With an encoder, ``vec`` may be a float32 tensor on its device:
+        the bounds, the sub-cell split and the encode then run there, and
+        only the six bounds and the encoded blocks come to the host."""
+        on_device = torch.is_tensor(vec)
+        if on_device and self.encoder is None:
+            raise TypeError("a tensor of vectors needs the writer's encoder")
+        if not on_device:
+            vec = np.asarray(vec, dtype=np.float32)
         if self.periodic:
             l = np.float32(self.hd.l)
             mins = np.zeros(3, np.float32)
             maxs = np.full(3, l, np.float32)
         else:
-            mins = vec.min(axis=0)
-            maxs = vec.max(axis=0)
+            if on_device:
+                # exact in any order: one reduction, six floats back
+                mins, maxs = (t.cpu().numpy()
+                              for t in torch.aminmax(vec, dim=0))
+            else:
+                mins = vec.min(axis=0)
+                maxs = vec.max(axis=0)
             # ref go/minp/minp.go:93-95: nudge each max one ulp toward
             # 2*max (upward for positive bounds)
             maxs = np.nextafter(maxs, 2 * maxs).astype(np.float32)
@@ -195,11 +226,14 @@ class Writer:
                 % (len(vec), self.hd.n_side, self.cell.file_cells))
         s = self.cell.sub_cells
         with profiling.span("minp.split_sub_cells", vec.nbytes):
-            blocks = split_sub_cells(vec, s)  # (S^3, nSub^3, 3)
-            if self.encoder is not None:
-                # each axis's blocks contiguous, as a batch is encoded
-                axes = np.ascontiguousarray(blocks.transpose(2, 0, 1))
-        n_sub3 = blocks.shape[1]
+            if on_device:
+                axes = split_axes(vec, s)  # (3, S^3, nSub^3)
+            else:
+                blocks = split_sub_cells(vec, s)  # (S^3, nSub^3, 3)
+                if self.encoder is not None:
+                    # each axis's blocks contiguous, as a batch is encoded
+                    axes = np.ascontiguousarray(blocks.transpose(2, 0, 1))
+        n_sub3 = axes.shape[2] if on_device else blocks.shape[1]
         for k in range(3):
             # clamp_q only for non-periodic data: guards the reference's
             # q == pixels wrap bug (SURVEY.md App. B #9); for periodic data

@@ -161,17 +161,26 @@ class LGadget2Snapshot(snap_mod.Snapshot):
         count = gh.particle_count(self.n_part_num)
         return f, gh, count
 
+    def _read_block(self, f, i, shape, dtype):
+        """A block of file ``i`` read straight into a new array (one
+        buffer, no copy); a short read raises."""
+        a = np.empty(shape, dtype)
+        if f.readinto(a.reshape(-1).view(np.uint8)) != a.nbytes:
+            raise CorruptionError("The file %s ends inside a block."
+                                  % self.filenames[i])
+        return a
+
     @profiling.traced("lgadget2.read")
     def read_x(self, i):
         f, gh, count = self._open_data(i)
         with f:
             f.read(4)
-            x = np.frombuffer(f.read(12 * count), dtype="<f4").reshape(
-                count, 3).copy()
+            x = self._read_block(f, i, (count, 3), "<f4")
         l = np.float32(gh.box_size)
-        x = np.where(x < 0, x + l, x)
-        x = np.where(x >= l, x - l, x)
-        if (np.isnan(x).any() or np.isinf(x).any()
+        # wrap into [0, l) in place: one pass each way, no new arrays
+        np.add(x, l, out=x, where=x < 0)
+        np.subtract(x, l, out=x, where=x >= l)
+        if (not np.isfinite(x).all()
                 or (x < 0).any() or (x >= l).any()):
             raise CorruptionError("Corruption detected in the file %s."
                                   % self.filenames[i])
@@ -183,8 +192,7 @@ class LGadget2Snapshot(snap_mod.Snapshot):
         with f:
             f.seek(8 + count * 12, 1)
             f.read(4)
-            v = np.frombuffer(f.read(12 * count), dtype="<f4").reshape(
-                count, 3).copy()
+            v = self._read_block(f, i, (count, 3), "<f4")
         v *= np.float32(math.sqrt(gh.time))
         if np.isnan(v).any() or np.isinf(v).any():
             raise CorruptionError("Corruption detected in the file %s."
@@ -197,7 +205,7 @@ class LGadget2Snapshot(snap_mod.Snapshot):
         with f:
             f.seek(16 + count * 24, 1)
             f.read(4)
-            ids = np.frombuffer(f.read(8 * count), dtype="<i8").copy()
+            ids = self._read_block(f, i, (count,), "<i8")
         return ids
 
 

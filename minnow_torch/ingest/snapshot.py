@@ -14,7 +14,9 @@ SURVEY App. B #2) which are fixed, not replicated.
 
 The port's own copy of ``minnow_tpu/ingest/snapshot.py``: the same
 arithmetic and the same bytes, on numpy, with no import from that
-package.
+package.  ``Grid`` also has a device route (``device=``), which
+``write_minp`` takes when it is given an encoder: the grid is built on
+the encoder's device and stays there through the encode.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ import abc
 import os
 
 import numpy as np
+import torch
 
 from ..formats import minp as minp_fmt
+from ..ops import rebin
 from ..utils import profiling
 
 # rho_critical(z=0) in (Msun/h) / (Mpc/h)^3 (h-free comoving units), the
@@ -111,11 +115,31 @@ class MockSnapshot(Snapshot):
         return self.ids[i]
 
 
+def device_budget(device):
+    """Bytes of ``device``'s memory that a batch of re-binned file cells
+    may take: half of what is free on a CUDA device, the rest left to the
+    source files' copies and the encode; on the CPU no limit (None)."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0] // 2
+    return None
+
+
 class Grid(Snapshot):
     """Lagrangian re-binning of a snapshot into cells**3 cubic file-cells
-    (ref go/minp/snapshot/grid.go:12-103, bugs fixed)."""
+    (ref go/minp/snapshot/grid.go:12-103, bugs fixed).
 
-    def __init__(self, snap: Snapshot, cells: int):
+    Without ``device``, each vector kind's whole grid is built on the host
+    with numpy.  With ``device`` (a torch device) the grid is built there
+    a batch of file cells at a time, positions and velocities together,
+    and ``read_x`` / ``read_v`` return views of the batch that holds the
+    cell.  A batch takes ``rebin.batch_bytes`` (24 bytes and a bit a
+    place), at most :func:`device_budget` (at least one cell); each reads
+    every source file once and copies its IDs and vectors there, where
+    ``ops.rebin.Batch`` places them (a launch of ``csrc/rebin.cu`` on a
+    CUDA device, the plain version on the CPU).  Reading the cells in
+    order builds each batch once."""
+
+    def __init__(self, snap: Snapshot, cells: int, device=None):
         if not snap.uniform_mass():
             raise ValueError("snapshot.Grid requires uniform particle mass")
         hd = snap.header()
@@ -126,8 +150,11 @@ class Grid(Snapshot):
         self.snap = snap
         self.cells = cells
         self.hd = hd
+        self.device = None if device is None else torch.device(device)
         self._x = None
         self._v = None
+        self._batch = None  # device route: the batch of file cells held
+        self._per_batch = None  # device route: file cells a batch
 
     def files(self):
         return self.cells ** 3
@@ -150,18 +177,10 @@ class Grid(Snapshot):
         """(cell, within-cell) indices of Lagrangian ids
         (ref go/minp/snapshot/grid.go:118-137) -- vectorized."""
         n_all = self.hd.n_side
-        n_side = n_all // self.cells  # elements per cell side
         ids = np.asarray(ids, np.int64)
         if ids.min() < 0 or ids.max() >= n_all ** 3:
             raise ValueError("ID out of range for NSide=%d" % n_all)
-        idx = ids % n_all
-        idy = (ids // n_all) % n_all
-        idz = ids // (n_all * n_all)
-        ix, iy, iz = idx % n_side, idy % n_side, idz % n_side
-        i = ix + iy * n_side + iz * n_side * n_side
-        cx, cy, cz = idx // n_side, idy // n_side, idz // n_side
-        c = cx + cy * self.cells + cz * self.cells * self.cells
-        return c, i
+        return rebin.cell_index(ids, n_all, self.cells)
 
     def _build(self, read):
         n_file = self.hd.n_side // self.cells
@@ -175,12 +194,51 @@ class Grid(Snapshot):
                 grid[c, i] = vec
         return grid
 
+    def _batch_of(self, i):
+        """The device route's batch of file cells that holds cell ``i``:
+        the batch held, or a new one, the one held released first."""
+        b = self._batch
+        if b is not None and b.first <= i < b.first + b.count:
+            return b
+        self._batch = None
+        n_side = int(self.hd.n_side)
+        if self._per_batch is None:
+            budget = device_budget(self.device)
+            per_cell = rebin.batch_bytes(n_side, self.cells, 1)
+            self._per_batch = self.cells ** 3 if budget is None else \
+                max(1, min(self.cells ** 3, budget // per_cell))
+        first = i - i % self._per_batch
+        b = rebin.Batch(n_side, self.cells, first,
+                        min(self._per_batch, self.cells ** 3 - first),
+                        self.device)
+        files = self.snap.files()
+        for f in range(files):
+            x = np.ascontiguousarray(self.snap.read_x(f), np.float32)
+            v = np.ascontiguousarray(self.snap.read_v(f), np.float32)
+            ids = np.ascontiguousarray(self.snap.read_id(f), np.int64)
+            with profiling.span("grid.cell_index", ids.nbytes):
+                ids_on = torch.from_numpy(ids).to(self.device)
+            with profiling.span("grid.scatter", x.nbytes + v.nbytes) as sp:
+                b.add(ids_on, torch.from_numpy(x).to(self.device),
+                      torch.from_numpy(v).to(self.device))
+                sp.counts["device"] = 1
+                if f == files - 1:
+                    b.check()
+        self._batch = b
+        return b
+
     def read_x(self, i):
+        if self.device is not None:
+            b = self._batch_of(i)
+            return b.x[i - b.first]
         if self._x is None:
             self._x = self._build(self.snap.read_x)
         return self._x[i]
 
     def read_v(self, i):
+        if self.device is not None:
+            b = self._batch_of(i)
+            return b.v[i - b.first]
         if self._v is None:
             self._v = self._build(self.snap.read_v)
         return self._v[i]
@@ -249,13 +307,17 @@ def write_minp(dirname: str, fname_fmt: str, file_cells: int,
     (ref go/minp/snapshot/minp.go:90-123; the reference writes position
     data into the velocity files -- App. B #2 -- fixed here).
 
-    ``encoder`` (a parallel.BlockEncoder) routes each file's sub-cell
-    vector encode through the batched device pipeline; bytes are
-    identical to the host writer."""
-    grid = Grid(snap, file_cells)
-    for kind, read, step, periodic in (("x", grid.read_x, dx, True),
-                                       ("v", grid.read_v, dv, False)):
-        for i in range(grid.files()):
+    ``encoder`` (a parallel.BlockEncoder) builds the grid on its first
+    device, a batch of file cells at a time, and routes each file's
+    sub-cell vector encode through the batched device pipeline, the
+    vectors staying on the device; bytes are identical to the host
+    writer.  The files are written a cell at a time, positions then
+    velocities, so each batch is built once."""
+    grid = Grid(snap, file_cells,
+                None if encoder is None else encoder.device)
+    for i in range(grid.files()):
+        for kind, read, step, periodic in (("x", grid.read_x, dx, True),
+                                           ("v", grid.read_v, dv, False)):
             cell = minp_fmt.Cell(i, file_cells, sub_cells)
             w = minp_fmt.create(
                 os.path.join(dirname, fname_fmt % (kind, i)),

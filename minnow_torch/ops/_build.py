@@ -66,6 +66,10 @@ _SIGNATURES = {
     # src, B, start_bit, bits, len, out_off, mins, out, grid_y, stream
     "minnow_unpack_int_ragged": [_P, _I64, _P, _P, _P, _P, _P, _P, _U32,
                                  _P],
+    # ids, x, v, n_particles, n_side, cells, c_lo, c_hi, grid_x, grid_v,
+    # marks, error, stream
+    "minnow_rebin": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P,
+                     _P, _P],
 }
 
 _lib = None

@@ -143,7 +143,10 @@ class BlockEncoder:
 
     @staticmethod
     def _as_batch(x, lens, dtype):
-        x = np.ascontiguousarray(x, dtype)
+        if torch.is_tensor(x):  # stays on its device
+            x = x.contiguous()
+        else:
+            x = np.ascontiguousarray(x, dtype)
         b, n = x.shape
         if lens is None:
             lens = np.full(b, n, dtype=np.int64)
@@ -153,6 +156,8 @@ class BlockEncoder:
 
     @staticmethod
     def _put(a, device):
+        if torch.is_tensor(a):
+            return a.to(device)
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     @profiling.traced("encoder.payloads")
@@ -195,7 +200,9 @@ class BlockEncoder:
     def encode_float_blocks(self, x, low, high, pixels, lens=None,
                             periodic=True,
                             clamp_q: bool = False) -> EncodedBlocks:
-        """Encode (B, N) float32 blocks (ref go/group.go:312-327).
+        """Encode (B, N) float32 blocks (ref go/group.go:312-327): a
+        numpy array, or a tensor, which is used where it lies (on the
+        encoder's device it is not copied).
 
         ``low``/``high``/``pixels``/``periodic`` may be scalars or (B,)
         arrays (per-block quantisation configs, as the multi-column minh
@@ -235,8 +242,11 @@ class BlockEncoder:
         with COUNT_LOCK:
             HOST_BLOCKS += int(host.sum())
         for i in np.nonzero(host)[0]:
+            row = x[i, :lens[i]]
+            if torch.is_tensor(row):  # only this block's row comes back
+                row = row.cpu().numpy()
             payloads[i], mins[i], bits[i], _ = spec.encode_float_block(
-                x[i, :lens[i]], low[i], high[i], int(pixels[i]),
+                row, low[i], high[i], int(pixels[i]),
                 periodic=bool(periodic[i]), clamp_q=clamp_q)
         return EncodedBlocks(payloads, mins, bits, lens)
 

@@ -11,17 +11,20 @@ The last tests start two worker processes on the one card (gloo between
 them), each with a time limit.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from minnow_torch.cli import minh_to_bnd, text_to_minh
+from minnow_torch.cli import convert_snapshot, minh_to_bnd, text_to_minh
 from minnow_torch.core import spec
 from minnow_torch.formats import device_common, minh, minh_device, minp
 from minnow_torch.formats import minp_device
-from minnow_torch.ops import bitpack, codec, decode, encode, selfcheck
-from minnow_torch.ops import validate
+from minnow_torch.ingest import snapshot
+from minnow_torch.ops import bitpack, codec, decode, encode, rebin
+from minnow_torch.ops import selfcheck, validate
 from minnow_torch.parallel.pipeline import BlockEncoder
 from minnow_torch.tools import (dryrun, kernel_fuzz_soak,
                                 multiprocess_gather_check)
@@ -422,6 +425,130 @@ def test_block_encoder_float_on_card_matches_spec(dev):
             periodic=bool(periodic[i]))
         assert (enc.payloads[i], enc.mins[i], enc.bits[i]) == \
             (payload, mn, bits), i
+
+
+# the snapshot cell's shape: particles a side, source files, box side
+SNAP_SIDE, SNAP_FILES, SNAP_L = 256, 8, 31.25
+
+
+@pytest.mark.parametrize("cells,first,count", [(1, 0, 1), (2, 0, 8),
+                                               (2, 3, 4)])
+def test_rebin_matches_plain_at_the_cells_shape(dev, cells, first, count):
+    n = SNAP_SIDE ** 3
+    rng = np.random.default_rng(cells + first)
+    ids = rng.permutation(n) + 1
+    x = rng.uniform(0, SNAP_L, (n, 3)).astype(np.float32)
+    v = rng.normal(0, 300, (n, 3)).astype(np.float32)
+    v[7] = np.array([0x7FC01234, 0xFFA00001, 0x80000000],
+                    np.uint32).view(np.float32)
+    parts = np.array_split(np.arange(n), SNAP_FILES)
+    batches = []
+    for where in (dev, torch.device("cpu")):
+        batch = rebin.Batch(SNAP_SIDE, cells, first, count, where)
+        before = rebin.REBIN_LAUNCHES
+        for p in parts:
+            batch.add(*(torch.from_numpy(a[p]).to(where)
+                        for a in (ids, x, v)))
+        assert rebin.REBIN_LAUNCHES - before == SNAP_FILES
+        batch.check()
+        batches.append(batch)
+    for name in ("x", "v", "marks", "error"):
+        _same(*(getattr(b, name).cpu() for b in batches))
+    assert batches[0].marks.tolist() == [-1] * (
+        count * (SNAP_SIDE // cells) ** 3 // 32)
+
+
+def _small_snapshot(seed, files=3, n_side=16):
+    rng = np.random.default_rng(seed)
+    n = n_side ** 3
+    hd = minp.Header(z=0.0, scale=1.0, omega_m=0.3, omega_l=0.7, h100=0.7,
+                     l=50.0, n_side=n_side, n_total=n)
+    snapshot.calc_uniform_mass(hd)
+    parts = np.array_split(rng.permutation(n), files)
+    v = rng.normal(0, 50, (n, 3)).astype(np.float32)
+    return snapshot.MockSnapshot(hd, [v[p] for p in parts],
+                                 [v[p] for p in parts],
+                                 [p + 1 for p in parts])
+
+
+@pytest.mark.parametrize("fault", ["low", "high", "twice", "none"])
+def test_rebin_on_card_finds_bad_ids(dev, fault):
+    snap = _small_snapshot(5)
+    if fault == "low":
+        snap.ids[2][9] = 0
+    elif fault == "high":
+        snap.ids[0][0] = 16 ** 3 + 1
+    elif fault == "twice":
+        snap.ids[1][3] = snap.ids[2][0]
+    grid = snapshot.Grid(snap, 2, device=dev)
+    if fault == "none":
+        host = snapshot.Grid(snap, 2)
+        for i in range(8):
+            np.testing.assert_array_equal(
+                grid.read_v(i).cpu().numpy().view(np.uint32),
+                host.read_v(i).view(np.uint32))
+        return
+    match = ("two particles have one ID" if fault == "twice"
+             else "ID out of range for NSide=16")
+    with pytest.raises(ValueError, match=match):
+        grid.read_v(0)
+
+
+def test_to_minp_on_card_matches_host_at_the_cells_shape(dev, tmp_path):
+    gadget, on_card, host = (str(tmp_path / d)
+                             for d in ("gadget", "device", "host"))
+    for d in (gadget, on_card, host):
+        os.makedirs(d)
+    chip_smoke.write_snapshot(gadget, SNAP_SIDE, SNAP_L, SNAP_FILES)
+    args = (1, 8, 0.001, 1.0)
+    before = rebin.REBIN_LAUNCHES
+    convert_snapshot.to_minp(gadget, on_card, *args, dev)
+    assert rebin.REBIN_LAUNCHES - before == SNAP_FILES
+    convert_snapshot.to_minp(gadget, host, *args)
+    for name in ("x_0.minp", "v_0.minp"):
+        with open(os.path.join(on_card, name), "rb") as a, \
+                open(os.path.join(host, name), "rb") as b:
+            assert a.read() == b.read(), name
+
+
+@pytest.mark.parametrize("per_batch", [1, 64])
+def test_to_minp_on_card_holds_a_batch_of_cells(dev, tmp_path, monkeypatch,
+                                                per_batch):
+    """At 4 file cells (64 of 32^3) in 16 source files, the card's peak
+    over a conversion is the batch's grids, one source file's copies and
+    an output file's encode, not the snapshot's grids; the files are host
+    mode's."""
+    n_side, cells, files = 128, 4, 16
+    gadget, on_card, host = (str(tmp_path / d)
+                             for d in ("gadget", "device", "host"))
+    for d in (gadget, on_card, host):
+        os.makedirs(d)
+    chip_smoke.write_snapshot(gadget, n_side, SNAP_L, files)
+    places = (n_side // cells) ** 3
+    budget = per_batch * rebin.batch_bytes(n_side, cells, 1)
+    monkeypatch.setattr(snapshot, "device_budget", lambda d: budget)
+    args = (cells, 2, 0.001, 1.0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = rebin.REBIN_LAUNCHES
+    convert_snapshot.to_minp(gadget, on_card, *args, dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert rebin.REBIN_LAUNCHES - before == files * 64 // per_batch
+    # a source file's IDs twice (the next copied before the last is
+    # freed) and its two vectors: 40 bytes a particle
+    staging = 40 * n_side ** 3 // files
+    snapshot_grids = rebin.batch_bytes(n_side, cells, cells ** 3)
+    assert budget <= peak <= budget + staging + (4 << 20), peak
+    if per_batch == 1:
+        assert peak < snapshot_grids / 4, peak
+    convert_snapshot.to_minp(gadget, host, *args)
+    names = sorted(os.listdir(host))
+    assert sorted(os.listdir(on_card)) == names and len(names) == 128
+    for name in names:
+        with open(os.path.join(on_card, name), "rb") as a, \
+                open(os.path.join(host, name), "rb") as b:
+            assert a.read() == b.read(), name
 
 
 def test_text_to_minh_device_and_read_on_card(dev, tmp_path):

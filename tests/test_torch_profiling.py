@@ -261,15 +261,20 @@ def test_to_minp_and_read_vectors_open_their_spans(tmp_path):
     convert_snapshot.to_minp(gdir, str(out), 1, 2, 0.001, 0.01, "cpu")
     spans, dropped = profiling.records(t0)
     assert not dropped
-    # x then v: two input files, each read for its vectors and its ids,
-    # indexed and scattered; one output file each, three axes of blocks
+    # one batch of the one cell: two input files, each read for its
+    # positions, velocities and ids, its ids and vectors copied and
+    # scattered once; one output file a kind, three axes of blocks
     assert collections.Counter(s.name for s in spans) == {
-        "convert_snapshot.to_minp": 1, "lgadget2.read": 8,
-        "grid.cell_index": 4, "grid.scatter": 4,
+        "convert_snapshot.to_minp": 1, "lgadget2.read": 6,
+        "grid.cell_index": 2, "grid.scatter": 2,
         "minp.split_sub_cells": 2, "encoder.encode_float": 6,
         "encoder.payloads": 6, "container.write": 6, "container.close": 2}
     root = next(s for s in spans if s.name == "convert_snapshot.to_minp")
     assert {s.root for s in spans} == {root.id}
+    # the spans rebin_ms reads, from the device route (the plain version
+    # of csrc/rebin.cu on the CPU)
+    assert all(s.counts == {"device": 1} for s in spans
+               if s.name == "grid.scatter")
 
     for name in ("x_0.minp", "v_0.minp"):
         with minp.open(str(out / name)) as r:
