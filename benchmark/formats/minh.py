@@ -23,6 +23,7 @@ from minnow_torch.utils.profiling import StageTimer
 from harness import roofline
 from harness.cell import inputs_made
 from harness.compare import differing, file_bytes
+from harness.faults import FILES, VALUES, on_output, on_result
 from reference import codec, container
 from reference import minh as ref
 from traffic import catalog
@@ -134,3 +135,35 @@ class Workload:
             f.write(cat.file_bytes())
         return [(0, out)]
 
+
+
+# -- the benchmark's tests --------------------------------------------------
+
+
+def small(cfg) -> dict:
+    """The overrides that run a configuration of this format in seconds
+    on the CPU."""
+    return {"rows": 1500}
+
+
+def _each(fault):
+    return lambda out: {n: fault(a) for n, a in out.items()}
+
+
+def _timed_output(args):
+    out = args[5]  # convert_file(config, index, types, vars, hlist, out)
+    return out if os.path.basename(os.path.dirname(out)) == "out" else None
+
+
+def faults(kind) -> dict:
+    """Fault name -> ``plant(monkeypatch)``, which breaks this format's
+    timed entry point for ``kind`` traffic: the float columns that
+    ``read_floats`` returns, or the file that ``convert_file`` writes for
+    a request (set-up's own conversions stay sound)."""
+    if kind == "read":
+        return {n: on_result(minh_device, "read_floats", _each(f))
+                for n, f in VALUES.items()}
+    if kind == "convert":
+        return {n: on_output(text_to_minh, "convert_file", _timed_output, f)
+                for n, f in FILES.items()}
+    raise KeyError("formats/minh.py serves no %r traffic" % kind)

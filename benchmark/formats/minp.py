@@ -23,6 +23,7 @@ from minnow_torch.parallel.pipeline import BlockEncoder
 from harness import roofline
 from harness.cell import sync
 from harness.compare import differing, file_bytes
+from harness.faults import FILES, VALUES, on_output, on_result
 from reference import codec, container
 from reference import minp as ref
 from traffic import snapshot
@@ -196,3 +197,33 @@ class Workload:
                 f.write(cf.file_bytes())
         return [(0, out)]
 
+
+
+# -- the benchmark's tests --------------------------------------------------
+
+
+def small(cfg) -> dict:
+    """The overrides that run a configuration of this format in seconds
+    on the CPU."""
+    return {"n_side": 32}
+
+
+def _timed_output(args):
+    out_dir = args[1]  # to_minp(in_dir, out_dir, ...)
+    if os.path.basename(out_dir).isdigit():  # a request's: its number
+        return os.path.join(out_dir, "x_0.minp")
+    return None
+
+
+def faults(kind) -> dict:
+    """Fault name -> ``plant(monkeypatch)``, which breaks this format's
+    timed entry point for ``kind`` traffic: the vectors that
+    ``read_vectors`` returns, or a file of the fileset that ``to_minp``
+    writes for a request (set-up's own conversion stays sound)."""
+    if kind == "read":
+        return {n: on_result(minp_device, "read_vectors", f)
+                for n, f in VALUES.items()}
+    if kind == "convert":
+        return {n: on_output(convert_snapshot, "to_minp", _timed_output, f)
+                for n, f in FILES.items()}
+    raise KeyError("formats/minp.py serves no %r traffic" % kind)

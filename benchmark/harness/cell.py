@@ -4,8 +4,8 @@ Everything that belongs to one configuration, traffic mix or metric is
 found by its name: ``configs/<config>.json`` (its ``format`` names the
 workload module ``formats/<format>.py``), ``traffic/<traffic>.json`` (its
 ``generator`` names ``traffic/<generator>.py``) and
-``metrics/<metric>.py``.  ``BENCHMARK.json`` says which metrics a cell
-reports.
+``metrics/<metric>.py``; the program's launch counters by their names
+(``counters``).  ``BENCHMARK.json`` says which metrics a cell reports.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import importlib
 import importlib.util
 import json
 import os
+import pkgutil
+import re
 import shutil
 import time
 from pathlib import Path
@@ -24,9 +26,6 @@ from .spans import Spans
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
-COUNTERS = {"K1": ("encode", "K1_LAUNCHES"), "K3": ("encode", "K3_LAUNCHES"),
-            "K5": ("encode", "K5_LAUNCHES"), "K2": ("decode", "K2_LAUNCHES"),
-            "K4": ("decode", "K4_LAUNCHES")}
 
 
 def load_json(path) -> dict:
@@ -79,10 +78,21 @@ def reader(name: str, bench_dir=BENCH):
 
 
 def counters() -> dict:
+    """The program's launch counters: every module-level int named
+    ``*_LAUNCHES`` in the modules of ``minnow_torch.ops``, under its name,
+    or ``K<n>`` for ``K<n>_LAUNCHES``.  A module that fails to import
+    raises."""
+    ops = importlib.import_module("minnow_torch.ops")
     out = {}
-    for name, (mod, attr) in COUNTERS.items():
-        m = importlib.import_module("minnow_torch.ops." + mod)
-        out[name] = getattr(m, attr)
+    for info in pkgutil.iter_modules(ops.__path__):
+        mod = importlib.import_module(ops.__name__ + "." + info.name)
+        for attr, value in vars(mod).items():
+            if attr.endswith("_LAUNCHES") and type(value) is int:
+                key = re.sub(r"^(K\d+)_LAUNCHES$", r"\1", attr)
+                if key in out:
+                    raise ValueError("two launch counters %s in %s"
+                                     % (attr, ops.__name__))
+                out[key] = value
     return out
 
 

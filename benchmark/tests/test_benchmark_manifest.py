@@ -110,13 +110,25 @@ def test_pieces_found_by_name():
         assert c["file"].startswith("benchmark/")
         assert c["file"] == "benchmark/configs/%s.json" % c["name"]
         cfg = cell.config(SPEC, c["name"])
-        importlib.import_module("formats." + cfg["format"]).Workload
+        fmt = importlib.import_module("formats." + cfg["format"])
+        for piece in ("Workload", "small", "faults"):
+            assert callable(getattr(fmt, piece, None)), \
+                "formats/%s.py has no %s" % (cfg["format"], piece)
+        assert isinstance(fmt.small(cfg), dict), cfg["format"]
     pairs = {(w["config"], w["traffic"]) for w in SPEC["workloads"]}
     assert len(pairs) == len(SPEC["workloads"])
     for w in SPEC["workloads"]:
         mix = cell.traffic(w["traffic"])
         importlib.import_module("traffic." + mix["generator"]).run
         assert mix["kind"] in ("read", "convert")
+        name = cell.config(SPEC, w["config"])["format"]
+        try:
+            planted = importlib.import_module("formats." + name).faults(
+                mix["kind"])
+        except KeyError:
+            pytest.fail("formats/%s.py plants no faults for %s traffic (%s)"
+                        % (name, mix["kind"], w["name"]))
+        assert planted, (name, mix["kind"])
     for m in METRICS:
         assert callable(cell.reader(m["name"]))
 
