@@ -30,6 +30,7 @@ from ..formats import boundary, minh
 from ..formats.boundary_device import DeviceBoundaryWriter
 from ..formats.minh_device import read_column
 from ..parallel.pipeline import BlockEncoder
+from ..utils import profiling
 from ..utils.device import cuda_device
 
 __all__ = ["out_name", "convert_file", "main"]
@@ -47,6 +48,7 @@ def out_name(out_dir: str, fname: str) -> str:
     return os.path.join(out_dir, ".".join(toks))
 
 
+@profiling.traced("minh_to_bnd.convert_file")
 def convert_file(in_name: str, out_name_: str, cells: int, bnd: float,
                  device=None, dither: str = "uniform") -> None:
     """Convert one basic minh file (ref minh_to_bnd.go:52-78).
@@ -54,7 +56,9 @@ def convert_file(in_name: str, out_name_: str, cells: int, bnd: float,
     ``device`` is the torch device that decodes and encodes the Float
     and Int columns (a CUDA device runs the kernels, ``"cpu"`` their
     plain versions), or None for the host reader and writer.  The float
-    columns are read with ``dither``, as the reference reads them."""
+    columns are read with ``dither``, as the reference reads them.  Every
+    call records its spans (``utils.profiling``),
+    ``minh_to_bnd.convert_file`` the root."""
     rd = minh.open(in_name, dither=dither)
     try:
         w = boundary.create_boundary(out_name_)

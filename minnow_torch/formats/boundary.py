@@ -27,6 +27,7 @@ import struct
 import numpy as np
 
 from ..core import types as ctypes_
+from ..utils import profiling
 from . import minh as minh_mod
 
 
@@ -105,80 +106,89 @@ class BoundaryWriter:
     def coordinates(self, x, y, z) -> None:
         """Assign every point to its host cell + ghost cells, then write
         the synthetic ``"boundary"`` flag column
-        (ref go/minh/boundary.go:39-50)."""
-        wr = self.w
-        cells = wr.cells
-        dx = np.float32(wr.l) / np.float32(cells)
-        scaled_boundary = np.float32(wr.boundary) / dx
+        (ref go/minh/boundary.go:39-50).  One span, ``boundary.cells``,
+        covers it; its counts are the ``halos``, the ``rows`` written
+        (ghosts included) and the ``cells``."""
+        with profiling.span("boundary.cells") as sp:
+            wr = self.w
+            cells = wr.cells
+            dx = np.float32(wr.l) / np.float32(cells)
+            scaled_boundary = np.float32(wr.boundary) / dx
 
-        coord = np.stack([np.asarray(x, np.float32),
-                          np.asarray(y, np.float32),
-                          np.asarray(z, np.float32)])
-        vec = coord / dx
-        idx, reg = idx_reg(vec, cells, wr.l, scaled_boundary)
-        table, flags = host_cells_table(idx, reg, cells)
+            coord = np.stack([np.asarray(x, np.float32),
+                              np.asarray(y, np.float32),
+                              np.asarray(z, np.float32)])
+            vec = coord / dx
+            idx, reg = idx_reg(vec, cells, wr.l, scaled_boundary)
+            table, flags = host_cells_table(idx, reg, cells)
 
-        n = table.shape[0]
-        flat_cells = table.reshape(-1)
-        flat_flags = flags.reshape(-1)
-        flat_points = np.repeat(np.arange(n, dtype=np.int64), 8)
-        valid = flat_cells >= 0
-        flat_cells = flat_cells[valid]
-        flat_flags = flat_flags[valid]
-        flat_points = flat_points[valid]
+            n = table.shape[0]
+            flat_cells = table.reshape(-1)
+            flat_flags = flags.reshape(-1)
+            flat_points = np.repeat(np.arange(n, dtype=np.int64), 8)
+            valid = flat_cells >= 0
+            flat_cells = flat_cells[valid]
+            flat_flags = flat_flags[valid]
+            flat_points = flat_points[valid]
 
-        # stable sort by cell preserves the reference's insertion order
-        order = np.argsort(flat_cells, kind="stable")
-        cells_sorted = flat_cells[order]
-        points_sorted = flat_points[order]
-        flags_sorted = flat_flags[order]
-        counts = np.bincount(cells_sorted, minlength=cells ** 3)
-        splits = np.cumsum(counts)[:-1]
-        self.cell_index = np.split(points_sorted, splits)
-        flag_lists = np.split(flags_sorted, splits)
+            # stable sort by cell preserves the reference's insertion order
+            order = np.argsort(flat_cells, kind="stable")
+            cells_sorted = flat_cells[order]
+            points_sorted = flat_points[order]
+            flags_sorted = flat_flags[order]
+            counts = np.bincount(cells_sorted, minlength=cells ** 3)
+            splits = np.cumsum(counts)[:-1]
+            self.cell_index = np.split(points_sorted, splits)
+            flag_lists = np.split(flags_sorted, splits)
 
-        self._boundary_column(flag_lists)
+            self._boundary_column(flag_lists)
+            sp.counts.update(halos=n, rows=len(points_sorted),
+                             cells=cells ** 3)
 
     def _boundary_column(self, flag_lists) -> None:
-        """(ref go/minh/boundary.go:227-246)"""
+        """(ref go/minh/boundary.go:227-246); the groups' encode and
+        writes are one span, ``container.write``."""
         self.cols.append(minh_mod.Column(type=minh_mod.Int))
         self.names.append("boundary")
-        for flags in flag_lists:
-            n = len(flags)
-            self.w.f.int_group(n)
-            self.w.f.data(flags.astype(np.int64))
-            self.block_sizes.append(n)
+        with profiling.span("container.write"):
+            for flags in flag_lists:
+                n = len(flags)
+                self.w.f.int_group(n)
+                self.w.f.data(flags.astype(np.int64))
+                self.block_sizes.append(n)
         self.blocks = len(flag_lists)
 
     def column(self, name: str, col: minh_mod.Column, x) -> None:
         """Write one data column, gathered per cell
-        (ref go/minh/boundary.go:184-225)."""
+        (ref go/minh/boundary.go:184-225); its groups' gathers, encode and
+        writes are one span, ``container.write``."""
         if self.cell_index is None:
             raise RuntimeError("call coordinates() before column()")
         self.cols.append(col)
         self.names.append(name)
         wr = self.w
-        for idx in self.cell_index:
-            n = len(idx)
-            if col.type in (minh_mod.Int64, minh_mod.Int):
-                buf = np.asarray(x, np.int64)[idx]
-                if col.type == minh_mod.Int64:
-                    wr.f.fixed_size_group(ctypes_.INT64_GROUP, n)
-                else:
-                    wr.f.int_group(n)
-                wr.f.data(buf)
-            elif col.type in (minh_mod.Float32, minh_mod.Float):
-                buf = np.asarray(x, np.float32)[idx]
-                if col.type == minh_mod.Float32:
-                    wr.f.fixed_size_group(ctypes_.FLOAT32_GROUP, n)
+        with profiling.span("container.write"):
+            for idx in self.cell_index:
+                n = len(idx)
+                if col.type in (minh_mod.Int64, minh_mod.Int):
+                    buf = np.asarray(x, np.int64)[idx]
+                    if col.type == minh_mod.Int64:
+                        wr.f.fixed_size_group(ctypes_.INT64_GROUP, n)
+                    else:
+                        wr.f.int_group(n)
                     wr.f.data(buf)
+                elif col.type in (minh_mod.Float32, minh_mod.Float):
+                    buf = np.asarray(x, np.float32)[idx]
+                    if col.type == minh_mod.Float32:
+                        wr.f.fixed_size_group(ctypes_.FLOAT32_GROUP, n)
+                        wr.f.data(buf)
+                    else:
+                        wr.f.float_group(n, (col.low, col.high), col.dx)
+                        buf = minh_mod.process_float_column(buf, col)
+                        wr.f.data(buf)
                 else:
-                    wr.f.float_group(n, (col.low, col.high), col.dx)
-                    buf = minh_mod.process_float_column(buf, col)
-                    wr.f.data(buf)
-            else:
-                raise ValueError("Can't write column with type flag %d"
-                                 % col.type)
+                    raise ValueError("Can't write column with type flag %d"
+                                     % col.type)
 
     def close(self) -> None:
         """(ref go/minh/boundary.go:249-256)"""

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core import spec, types as ctypes_
+from ..utils import profiling
 from . import minh as minh_mod
 from .boundary import BoundaryWriter
 
@@ -48,18 +49,24 @@ class DeviceBoundaryWriter:
     # -- batched column write ----------------------------------------------
 
     def _cell_batch(self, x, dtype):
-        idxs = self.wr.cell_index
-        lens = np.array([len(i) for i in idxs], np.int64)
-        nmax = int(lens.max()) if len(lens) else 0
-        xb = np.zeros((len(idxs), max(nmax, 1)), dtype)
-        xv = np.asarray(x, dtype)
-        for r, idx in enumerate(idxs):
-            xb[r, :len(idx)] = xv[idx]
+        """A column's (cells, Nmax) batch and each cell's length: one
+        span, ``boundary.gather``, whose counts are ``nmax`` and the
+        ``rows`` gathered."""
+        with profiling.span("boundary.gather") as sp:
+            idxs = self.wr.cell_index
+            lens = np.array([len(i) for i in idxs], np.int64)
+            nmax = int(lens.max()) if len(lens) else 0
+            xb = np.zeros((len(idxs), max(nmax, 1)), dtype)
+            xv = np.asarray(x, dtype)
+            for r, idx in enumerate(idxs):
+                xb[r, :len(idx)] = xv[idx]
+            sp.counts.update(nmax=nmax, rows=int(lens.sum()))
         return xb, lens
 
     def column(self, name: str, col: minh_mod.Column, x) -> None:
         """Write one data column, all cells encoded in one batched device
-        call (ref go/minh/boundary.go:184-225)."""
+        call (ref go/minh/boundary.go:184-225); the groups' writes are one
+        span, ``container.write``."""
         wr = self.wr
         if wr.cell_index is None:
             raise RuntimeError("call coordinates() before column()")
@@ -74,10 +81,11 @@ class DeviceBoundaryWriter:
         if col.type == minh_mod.Int:
             xb, lens = self._cell_batch(x, np.int64)
             enc = self.enc.encode_int_blocks(xb, lens=lens)
-            for r, n in enumerate(lens):
-                f.int_group(int(n))
-                f.data_encoded(enc.payloads[r], int(enc.mins[r]),
-                               int(enc.bits[r]))
+            with profiling.span("container.write"):
+                for r, n in enumerate(lens):
+                    f.int_group(int(n))
+                    f.data_encoded(enc.payloads[r], int(enc.mins[r]),
+                                   int(enc.bits[r]))
         elif col.type == minh_mod.Float:
             buf = minh_mod.process_float_column(
                 np.asarray(x, np.float32), col)
@@ -85,10 +93,11 @@ class DeviceBoundaryWriter:
             pixels = spec.float_group_pixels(col.low, col.high, col.dx)
             enc = self.enc.encode_float_blocks(
                 xb, col.low, col.high, pixels, lens=lens)
-            for r, n in enumerate(lens):
-                f.float_group(int(n), (col.low, col.high), col.dx)
-                f.data_encoded(enc.payloads[r], int(enc.mins[r]),
-                               int(enc.bits[r]))
+            with profiling.span("container.write"):
+                for r, n in enumerate(lens):
+                    f.float_group(int(n), (col.low, col.high), col.dx)
+                    f.data_encoded(enc.payloads[r], int(enc.mins[r]),
+                                   int(enc.bits[r]))
         else:
             raise ValueError("Can't write column with type flag %d"
                              % col.type)
