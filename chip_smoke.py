@@ -77,12 +77,16 @@ Phases, each of which raises at its first failure:
    the card, bitwise equal to the host reader, one K2 launch a Float
    column and one K4 launch an Int column, and ``inspect_minh --device``
    printing what ``inspect_minh`` prints in host mode.
-   K1 to K4 must have been launched by this phase.  Before it, K1 to K4
+   K1 to K4 must have been launched by this phase, and the cell table
+   (``csrc/cells.cu``) built once.  Before it, K1 to K4
    are checked and timed as in 4 at this phase's shapes: K1 and K3 on
    one column of 512 ragged cells, K2 and K4 on that column whole, as
-   the read gives it them; after its count, the file's x and id columns
-   as the read stages them, through the ragged entry, timed beside their
-   bound;
+   the read gives it them; the cell table's kernel chain against its
+   plain version at the boundary cell's shape (3.0 M halos, 8^3 cells,
+   boundary 5), bitwise, and timed alone beside its bound and the plain
+   version (into the kernels line); after its count, the file's x and
+   id columns as the read stages them, through the ragged entry, timed
+   beside their bound;
 6. the snapshot path: an LGadget-2 fileset of 256^3 particles (L 250,
    lattice positions with Gaussian displacements and collapsed clusters;
    Gaussian velocities) through ``convert_snapshot to_minp --device`` at
@@ -189,7 +193,7 @@ from minnow_torch.formats import minh, minh_device, minp  # noqa: E402
 from minnow_torch.formats import minp_device  # noqa: E402
 from minnow_torch.ingest import lgadget2, snapshot  # noqa: E402
 from minnow_torch.ops import _build, bitpack, codec, decode  # noqa: E402
-from minnow_torch.ops import encode, rebin, selfcheck  # noqa: E402
+from minnow_torch.ops import cells, encode, rebin, selfcheck  # noqa: E402
 from minnow_torch.ops import validate  # noqa: E402
 from minnow_torch.parallel import pipeline  # noqa: E402
 from minnow_torch.parallel.pipeline import BlockEncoder  # noqa: E402
@@ -1969,11 +1973,56 @@ def check_boundary_shapes(dev, rng):
               floats)
 
 
-def boundary_path(dev):
+def cells_timed(dev, results):
+    """The boundary cell table's kernel chain (``ops.cells``,
+    ``csrc/cells.cu``) against its plain version on the card at the
+    boundary cell's shape: 3.0 M uniform halos in 8^3 cells of a 250 box,
+    shells of 5, bitwise (rows, flags, offsets), and timed: the count,
+    scan and place launches alone on the table's buffers (CUDA events,
+    median of 7), and the plain version (median of 7).  Its bound counts
+    what the table needs: x, y, z read once and each row's point index
+    and flag written once (the chain reads x, y, z twice, once a pass).
+    Goes into the kernels line."""
+    n = 3_000_000
+    rng = np.random.default_rng(18)
+    pos = [torch.from_numpy(rng.uniform(0, 250.0, n).astype(np.float32)).to(
+        dev) for _ in range(3)]
+    got = cells.build(*pos, 250.0, BOUNDARY, CELLS)
+    want = cells.table_plain(*pos, 250.0, BOUNDARY, CELLS)
+    for what in ("perm", "flags", "offsets"):
+        if not torch.equal(getattr(got, what), getattr(want, what)):
+            raise AssertionError("cells kernel and plain version differ: %s"
+                                 % what)
+    chain = cells.Chain(*pos, 250.0, BOUNDARY, CELLS)
+    perm, flags = torch.empty_like(got.perm), torch.empty_like(got.flags)
+
+    def launches():
+        chain.count()
+        chain.place(perm, flags)
+
+    ms = time_ms(launches)
+    if not (torch.equal(perm, got.perm) and torch.equal(flags, got.flags)):
+        raise AssertionError("the timed cells launches wrote another table")
+    plain_ms = time_ms(lambda: cells.table_plain(*pos, 250.0, BOUNDARY,
+                                                 CELLS))
+    rows = got.perm.numel()
+    moved = 12 * n + 9 * rows
+    results["cells"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0,
+                            **bound(moved, 0))
+    log("cells at the boundary cell's shape (%d halos, %d^3 cells, boundary "
+        "%g: %d rows): kernel chain %.4f ms, plain %.4f ms, bound %.4f ms "
+        "(%d bytes: x, y, z, a row's index and flag once); bitwise "
+        "equal" % (n, CELLS, BOUNDARY, rows, ms, plain_ms,
+                   results["cells"]["bound_ms"], moved))
+    del got, want, chain, perm, flags, pos
+
+
+def boundary_path(dev, results):
     """Phase 5: a catalog with ``int`` IDs above 2^53 to minh on the card,
     then to the boundary layout with ``minh_to_bnd --device``, read back
     and inspected on the card; every file and value against the port's
-    host mode."""
+    host mode.  The cell table's entry of the kernels line goes into
+    ``results``."""
     work = os.path.join(WORK, "boundary")
     for sub in ("device", "host", "bnd_device", "bnd_host"):
         os.makedirs(os.path.join(work, sub))
@@ -1983,6 +2032,7 @@ def boundary_path(dev):
     log("boundary path: catalog of %d rows, int IDs from 2^53 + 1, written "
         "in %.2f s" % (ROWS, time.perf_counter() - t0))
     check_boundary_shapes(dev, np.random.default_rng(13))
+    cells_timed(dev, results)
 
     # the counts start at zero here: this path must launch every kernel
     reset_counts()
@@ -1991,10 +2041,16 @@ def boundary_path(dev):
     widths = check_read_ints(src, dev)
 
     t0 = time.perf_counter()
+    tables = cells.CELLS_LAUNCHES
     minh_to_bnd.main([str(CELLS), str(BOUNDARY), src,
                       os.path.join(work, "bnd_device"), "--device"])
     torch.cuda.synchronize()
     t_dev = time.perf_counter() - t0
+    tables = cells.CELLS_LAUNCHES - tables
+    if tables != 1:
+        raise AssertionError("minh_to_bnd --device built %d cell tables, "
+                             "not one" % tables)
+    results["cells"]["launches"] = tables
     bnd = os.path.join(work, "bnd_device", "hlist_1.00000.bnd.minh")
     host_bnd = os.path.join(work, "bnd_host", "hlist_1.00000.bnd.minh")
     t0 = time.perf_counter()
@@ -2723,7 +2779,7 @@ def main():
     first = main_path(dev)
     log("phase 4: %.1f s" % (time.perf_counter() - t0))
     t0 = time.perf_counter()
-    second = boundary_path(dev)
+    second = boundary_path(dev, results)
     log("phase 5: %.1f s" % (time.perf_counter() - t0))
     t0 = time.perf_counter()
     third = snapshot_path(dev, results)
@@ -2770,6 +2826,12 @@ def main():
                     route="cuda", source=sources[k][1],
                     replaces=sources[k][2], launches=launches[k],
                     **results[k]) for k in sources]
+    kernels.append(dict(name="cells cells", route="cuda",
+                        source="minnow_torch/csrc/cells.cu",
+                        replaces="none: the host's boundary cell table "
+                        "(minnow_tpu/formats/boundary.py idx_reg, "
+                        "host_cells_table and the stable sort)",
+                        **results["cells"]))
     kernels.append(dict(name="rebin rebin", route="cuda",
                         source="minnow_torch/csrc/rebin.cu",
                         replaces="none: the host's re-binning by ID "

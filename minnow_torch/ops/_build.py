@@ -41,6 +41,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint
+_F32 = ctypes.c_float
 _SIGNATURES = {
     # x, B, n, run, low, dx, pixels, periodic, lens, stats, q, stream
     "minnow_encode_float_stats": [_P, _I64, _I64, _I32, _P, _P, _P, _P,
@@ -70,6 +71,16 @@ _SIGNATURES = {
     # marks, error, stream
     "minnow_rebin": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P,
                      _P, _P],
+    # n, cells, out
+    "minnow_cells_layout": [_I64, _I64, _P],
+    # x, y, z, n, dx, l, sb, cells, chunk, chunks, matrix, sums, offsets,
+    # error, stream
+    "minnow_cells_count": [_P, _P, _P, _I64, _F32, _F32, _F32, _I64, _I64,
+                           _I64, _P, _P, _P, _P, _P],
+    # x, y, z, n, dx, l, sb, cells, chunk, chunks, matrix, perm, flags,
+    # stream
+    "minnow_cells_place": [_P, _P, _P, _I64, _F32, _F32, _F32, _I64, _I64,
+                           _I64, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -23,11 +23,13 @@ from minnow_torch.core import spec
 from minnow_torch.formats import device_common, minh, minh_device, minp
 from minnow_torch.formats import minp_device
 from minnow_torch.ingest import snapshot
-from minnow_torch.ops import bitpack, codec, decode, encode, rebin
+from minnow_torch.ops import bitpack, cells, codec, decode, encode
+from minnow_torch.ops import rebin
 from minnow_torch.ops import selfcheck, validate
 from minnow_torch.parallel.pipeline import BlockEncoder
 from minnow_torch.tools import (dryrun, kernel_fuzz_soak,
                                 multiprocess_gather_check)
+from test_torch_cells import halos
 from test_torch_minh_to_bnd import BND, CELLS, write_catalog
 
 pytestmark = pytest.mark.cuda
@@ -704,6 +706,76 @@ def test_minh_to_bnd_device_matches_reference_host(dev, tmp_path, mode):
                              dither=mode)
     assert decode.K4_LAUNCHES > before[0] and encode.K3_LAUNCHES > before[1]
     assert port.read_bytes() == ref.read_bytes()
+
+
+def _uniform_halos(n, seed, l=250.0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.uniform(0, l, n).astype(np.float32) for _ in range(3))
+
+
+# (cells, boundary, halos): the CPU tests' shapes, the boundary cell's
+# (3.0 M halos in 8^3 cells), 12^3 cells, and 200^3 (more cells than the
+# matrix's bound: one chunk, its length chosen from the cells)
+CELL_TABLES = [(c, 5.0, None) for c in (1, 2, 4, 5, 8)] + [
+    (8, 0.6 * 250 / 8, None), (8, 5.0, 3_000_000), (12, 5.0, 1_000_000),
+    (200, 0.5, 20_000)]
+
+
+@pytest.mark.parametrize("cells_,bnd,n", CELL_TABLES)
+def test_cells_kernel_matches_plain(dev, cells_, bnd, n):
+    pos = halos(cells_, bnd) if n is None else _uniform_halos(n, cells_)
+    on_card = [torch.from_numpy(a).to(dev) for a in pos]
+    before = cells.CELLS_LAUNCHES
+    got = cells.build(*on_card, 250.0, bnd, cells_)
+    torch.cuda.synchronize()
+    assert cells.CELLS_LAUNCHES == before + 1
+    assert got.perm.is_cuda and got.flags.is_cuda and got.offsets.is_cuda
+    want = cells.table_plain(*on_card, 250.0, bnd, cells_)
+    for name in ("perm", "flags", "offsets"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert got.host_offsets.tolist() == want.host_offsets.tolist()
+    assert cells.CELLS_LAUNCHES == before + 1  # the plain version counts none
+
+
+@pytest.mark.parametrize("where", ["below -dx", "NaN", "none"])
+def test_cells_kernel_raises_for_a_halo_outside_the_box(dev, where):
+    x, y, z = halos(8)
+    if where != "none":
+        z[-3] = {"below -dx": -40.0, "NaN": np.nan}[where]
+    on_card = [torch.from_numpy(a).to(dev) for a in (x, y, z)]
+    if where == "none":
+        assert cells.build(*on_card, 250.0, 5.0, 8).perm.numel() > len(x)
+        return
+    with pytest.raises(ValueError, match="outside the box"):
+        cells.build(*on_card, 250.0, 5.0, 8)
+
+
+def test_cells_kernel_of_no_halos(dev):
+    empty = torch.zeros(0, dtype=torch.float32, device=dev)
+    t = cells.build(empty, empty, empty, 250.0, 5.0, 8)
+    assert t.perm.numel() == 0 and t.host_offsets.tolist() == [0] * 513
+
+
+def test_minh_to_bnd_device_builds_one_table_a_conversion(dev, tmp_path):
+    """``minh_to_bnd --device`` over two catalogs: one cell table on the
+    card a conversion, each file byte-identical to host mode's."""
+    for d in ("a", "b", "out_dev", "out_host"):
+        (tmp_path / d).mkdir()
+    for i, d in enumerate(("a", "b")):
+        src = write_catalog(tmp_path / d, n=2000 + i, seed=i)
+        src.rename(tmp_path / ("cat_%d.minh" % i))
+    pattern = str(tmp_path / "cat_*.minh")
+    before = cells.CELLS_LAUNCHES
+    minh_to_bnd.main([str(CELLS), str(BND), pattern,
+                      str(tmp_path / "out_dev"), "--device"])
+    assert cells.CELLS_LAUNCHES == before + 2
+    minh_to_bnd.main([str(CELLS), str(BND), pattern,
+                      str(tmp_path / "out_host")])
+    assert cells.CELLS_LAUNCHES == before + 2
+    for i in range(2):
+        name = "cat_%d.bnd.minh" % i
+        assert (tmp_path / "out_dev" / name).read_bytes() \
+            == (tmp_path / "out_host" / name).read_bytes()
 
 
 def test_read_ints_on_card(dev, tmp_path):
