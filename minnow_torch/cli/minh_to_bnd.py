@@ -9,7 +9,7 @@ Usage:
 Without ``--device`` the host reader and writer do the conversion.  With
 ``--device`` every Float and Int column is read on the CUDA device
 (``formats.minh_device``, kernels K2 and K4) and every cell group of
-those columns is encoded there (``DeviceBoundaryWriter`` with the port's
+those columns is encoded there (``create_boundary`` with the port's
 ``BlockEncoder``, kernels K1 and K3); without a CUDA device ``--device``
 is an error.  The device reads equal the host reader bitwise in every
 dither mode and the device encode equals the host codec, so the file is
@@ -27,7 +27,6 @@ import time
 import numpy as np
 
 from ..formats import boundary, minh
-from ..formats.boundary_device import DeviceBoundaryWriter
 from ..formats.minh_device import read_column
 from ..parallel.pipeline import BlockEncoder
 from ..utils import profiling
@@ -61,9 +60,8 @@ def convert_file(in_name: str, out_name_: str, cells: int, bnd: float,
     ``minh_to_bnd.convert_file`` the root."""
     rd = minh.open(in_name, dither=dither)
     try:
-        w = boundary.create_boundary(out_name_)
-        if device is not None:
-            w = DeviceBoundaryWriter(w, BlockEncoder(device))
+        w = boundary.create_boundary(
+            out_name_, None if device is None else BlockEncoder(device))
         w.header(rd.text)
         w.geometry(rd.l, np.float32(bnd), cells)
         w.coordinates(*(read_column(rd, name, device)

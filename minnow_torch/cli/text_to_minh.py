@@ -209,13 +209,12 @@ def convert_file(cfg, idx, types, wanted, hlist, out, device=None,
     if timer is not None:
         fr.set_timer(timer)
 
-    # writer encode pool sized to this call's thread share (see
-    # minh.Writer)
-    fm = minh.create(out, encode_workers=min(4, max(1, threads)))
     if encoder is None and device is not None:
         encoder = BlockEncoder(device)
-    if encoder is not None:
-        fm = _DeviceMinhWriter(fm, encoder)
+    # writer encode pool sized to this call's thread share (see
+    # minh.Writer)
+    fm = minh.create(out, encode_workers=min(4, max(1, threads)),
+                     encoder=encoder)
     fm.header(names, header, cols)
     fm.geometry(np.float32(cfg["L"]), 0, 0)
 
@@ -255,82 +254,6 @@ def convert_file(cfg, idx, types, wanted, hlist, out, device=None,
                     fm.block(block_cols)
     fm.close()
     fr.close()
-
-
-class _DeviceMinhWriter:
-    """minh.Writer wrapper that routes Float/Int columns through the
-    device pipeline; bytes identical to the host writer.
-
-    All Float columns of a row-block are quantized/packed in ONE batched
-    device call (their per-column quantization configs broadcast with the
-    batch), likewise all Int columns -- the multi-column analog of the
-    reference's per-column loop (ref go/minh/minh.go:99-139)."""
-
-    def __init__(self, wr: minh.Writer, encoder):
-        self.wr = wr
-        self.enc = encoder
-
-    def header(self, names, text, cols):
-        self.wr.header(names, text, cols)
-
-    def geometry(self, l, boundary, cells):
-        self.wr.geometry(l, boundary, cells)
-
-    def block(self, cols):
-        from ..core import spec, types as ctypes_
-
-        wr = self.wr
-        n = len(np.asarray(cols[0]))
-        wr.block_sizes.append(n)
-        wr.blocks += 1
-
-        float_ids = [i for i, c in enumerate(wr.cols)
-                     if c.type == minh.Float]
-        int_ids = [i for i, c in enumerate(wr.cols)
-                   if c.type == minh.Int]
-
-        encoded = {}
-        if float_ids:
-            x = np.stack([
-                minh.process_float_column(cols[i], wr.cols[i])
-                for i in float_ids])
-            low = np.array([wr.cols[i].low for i in float_ids],
-                           np.float32)
-            high = np.array([wr.cols[i].high for i in float_ids],
-                            np.float32)
-            pixels = np.array([
-                spec.float_group_pixels(wr.cols[i].low, wr.cols[i].high,
-                                        wr.cols[i].dx)
-                for i in float_ids], np.int64)
-            enc = self.enc.encode_float_blocks(x, low, high, pixels)
-            for row, i in enumerate(float_ids):
-                encoded[i] = (enc.payloads[row], enc.mins[row],
-                              enc.bits[row])
-        if int_ids:
-            x = np.stack([np.asarray(cols[i], np.int64)
-                          for i in int_ids])
-            enc = self.enc.encode_int_blocks(x)
-            for row, i in enumerate(int_ids):
-                encoded[i] = (enc.payloads[row], enc.mins[row],
-                              enc.bits[row])
-
-        with profiling.span("container.write"):
-            for i, x in enumerate(cols):
-                col = wr.cols[i]
-                if ctypes_.is_fixed(col.type):
-                    wr.f.fixed_size_group(col.type, n)
-                    wr.f.data(np.asarray(x, ctypes_.group_dtype(col.type)))
-                elif col.type == minh.Int:
-                    wr.f.int_group(n)
-                    payload, mn, bits = encoded[i]
-                    wr.f.data_encoded(payload, int(mn), int(bits))
-                elif col.type == minh.Float:
-                    wr.f.float_group(n, (col.low, col.high), col.dx)
-                    payload, mn, bits = encoded[i]
-                    wr.f.data_encoded(payload, int(mn), int(bits))
-
-    def close(self):
-        self.wr.close()
 
 
 def convert_files(cfg, idx, types, wanted, files, out_dir,

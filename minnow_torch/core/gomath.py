@@ -16,9 +16,8 @@ FDLIBM e_log.c scheme:
                s = f/(2+f), odd polynomial in s**2 with the published
                FDLIBM coefficients, compensated Ln2Hi/Ln2Lo summation.
 
-The code takes its array namespace as an argument (the port passes
-numpy); every operation is IEEE-f64 add/mul/div, so results do not depend
-on the platform's libm.
+Every operation is an IEEE-f64 add/mul/div on numpy, so results do not
+depend on the platform's libm.
 
 The port's own copy of ``minnow_tpu/core/gomath.py``: the same
 arithmetic and the same bytes, on numpy, with no import from that
@@ -45,12 +44,12 @@ _LN10 = 2.302585092994046
 _LOG2E = 1.4426950408889634  # 1/Ln2
 
 
-def _fdlibm_log(x, xp):
+def _fdlibm_log(x):
     """FDLIBM natural log of positive finite x (float64 array)."""
-    f1, ki = xp.frexp(x)  # x = f1 * 2**ki, f1 in [0.5, 1)
+    f1, ki = np.frexp(x)  # x = f1 * 2**ki, f1 in [0.5, 1)
     small = f1 < _SQRT2 / 2
-    f1 = xp.where(small, f1 * 2, f1)
-    k = (ki - small.astype(ki.dtype)).astype(xp.float64)
+    f1 = np.where(small, f1 * 2, f1)
+    k = (ki - small.astype(ki.dtype)).astype(np.float64)
 
     f = f1 - 1.0
     s = f / (2.0 + f)
@@ -63,34 +62,34 @@ def _fdlibm_log(x, xp):
     return k * _LN2_HI - ((hfsq - (s * (hfsq + r) + k * _LN2_LO)) - f)
 
 
-def log(x, xp=np):
+def log(x):
     """Go math.Log (float64).  Special cases follow Go: NaN->NaN, +Inf->+Inf,
     x<0 -> NaN, 0 -> -Inf."""
-    x = xp.asarray(x, xp.float64)
-    safe = xp.where(x > 0, x, 1.0)
-    out = _fdlibm_log(safe, xp)
-    out = xp.where(x == 0, -xp.inf, out)
-    out = xp.where(x < 0, xp.nan, out)
-    out = xp.where(xp.isnan(x) | (x == xp.inf), x, out)
+    x = np.asarray(x, np.float64)
+    safe = np.where(x > 0, x, 1.0)
+    out = _fdlibm_log(safe)
+    out = np.where(x == 0, -np.inf, out)
+    out = np.where(x < 0, np.nan, out)
+    out = np.where(np.isnan(x) | (x == np.inf), x, out)
     return out
 
 
-def log2(x, xp=np):
+def log2(x):
     """Go math.Log2: exact for powers of two (frac == 0.5 fast path,
     ref go src/math/log.go log2)."""
-    x = xp.asarray(x, xp.float64)
-    safe = xp.where(x > 0, x, 1.0)
-    frac, exp = xp.frexp(safe)
+    x = np.asarray(x, np.float64)
+    safe = np.where(x > 0, x, 1.0)
+    frac, exp = np.frexp(safe)
     exact = frac == 0.5
-    gen = log(xp.where(exact, 1.0, frac), xp) * _LOG2E + exp.astype(
-        xp.float64)
-    out = xp.where(exact, exp.astype(xp.float64) - 1.0, gen)
-    out = xp.where(x == 0, -xp.inf, out)
-    out = xp.where(x < 0, xp.nan, out)
-    out = xp.where(xp.isnan(x) | (x == xp.inf), x, out)
+    gen = log(np.where(exact, 1.0, frac)) * _LOG2E + exp.astype(
+        np.float64)
+    out = np.where(exact, exp.astype(np.float64) - 1.0, gen)
+    out = np.where(x == 0, -np.inf, out)
+    out = np.where(x < 0, np.nan, out)
+    out = np.where(np.isnan(x) | (x == np.inf), x, out)
     return out
 
 
-def log10(x, xp=np):
+def log10(x):
     """Go math.Log10 = Log2(x) * (Ln2 / Ln10)."""
-    return log2(x, xp) * (_LN2 / _LN10)
+    return log2(x) * (_LN2 / _LN10)

@@ -138,16 +138,17 @@ class BoundaryWriter:
             flags_sorted = flat_flags[order]
             counts = np.bincount(cells_sorted, minlength=cells ** 3)
             splits = np.cumsum(counts)[:-1]
-            self.cell_index = np.split(points_sorted, splits)
-            flag_lists = np.split(flags_sorted, splits)
-
-            self._boundary_column(flag_lists)
+            self.set_cells(np.split(points_sorted, splits),
+                           np.split(flags_sorted, splits))
             sp.counts.update(halos=n, rows=len(points_sorted),
                              cells=cells ** 3)
 
-    def _boundary_column(self, flag_lists) -> None:
-        """(ref go/minh/boundary.go:227-246); the groups' encode and
-        writes are one span, ``container.write``."""
+    def set_cells(self, cell_index, flag_lists) -> None:
+        """Take the finished cell table -- each cell's row indices and
+        their flags (0 host, 1 ghost) -- and write the synthetic
+        ``"boundary"`` flag column (ref go/minh/boundary.go:227-246); the
+        groups' encode and writes are one span, ``container.write``."""
+        self.cell_index = cell_index
         self.cols.append(minh_mod.Column(type=minh_mod.Int))
         self.names.append("boundary")
         with profiling.span("container.write"):
@@ -190,6 +191,30 @@ class BoundaryWriter:
                     raise ValueError("Can't write column with type flag %d"
                                      % col.type)
 
+    def encoded_column(self, name: str, col: minh_mod.Column, enc) -> None:
+        """Write one coded (Int or Float) column whose cells are already
+        encoded, one block a cell in cell order (an ``EncodedBlocks``):
+        one group a cell, all in one span, ``container.write``."""
+        if self.cell_index is None:
+            raise RuntimeError("call coordinates() before column()")
+        if len(enc.payloads) != len(self.cell_index):
+            raise ValueError("%d encoded blocks for %d cells"
+                             % (len(enc.payloads), len(self.cell_index)))
+        f = self.w.f
+        if col.type == minh_mod.Int:
+            def start_group(r):
+                f.int_group(len(self.cell_index[r]))
+        elif col.type == minh_mod.Float:
+            def start_group(r):
+                f.float_group(len(self.cell_index[r]), (col.low, col.high),
+                              col.dx)
+        else:
+            raise ValueError("Can't write column with type flag %d"
+                             % col.type)
+        self.cols.append(col)
+        self.names.append(name)
+        enc.write_to(f, start_group)
+
     def close(self) -> None:
         """(ref go/minh/boundary.go:249-256)"""
         wr = self.w
@@ -207,5 +232,13 @@ class BoundaryWriter:
         self.close()
 
 
-def create_boundary(fname) -> BoundaryWriter:
-    return BoundaryWriter(fname)
+def create_boundary(fname, encoder=None):
+    """A boundary writer: the host writer or, with ``encoder`` (a
+    parallel.BlockEncoder), the device route
+    (``boundary_device.DeviceBoundaryWriter``)."""
+    wr = BoundaryWriter(fname)
+    if encoder is None:
+        return wr
+    from .boundary_device import DeviceBoundaryWriter
+
+    return DeviceBoundaryWriter(wr, encoder)

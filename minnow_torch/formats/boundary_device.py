@@ -14,8 +14,11 @@ CUDA device).  Output bytes are identical to the host writer
 (tests/test_torch_minh_to_bnd.py); a halo outside the box raises where
 the host writer misfiles it (``ops/cells.py``).
 
-Kept separate from formats/boundary.py so host-side boundary IO never
-imports torch.
+``boundary.create_boundary(fname, encoder=...)`` returns this writer; it
+is kept separate from formats/boundary.py so host-side boundary IO never
+imports torch.  It writes the file only through ``BoundaryWriter``'s
+public methods: ``set_cells`` takes the device's cell table and
+``encoded_column`` a coded column's ``EncodedBlocks``.
 
 The port's own copy of ``minnow_tpu/formats/boundary_device.py``: the
 same batching and the same bytes; the encoder is always the caller's
@@ -51,6 +54,7 @@ class DeviceBoundaryWriter:
 
     def geometry(self, l: float, boundary: float, cells: int) -> None:
         self.wr.geometry(l, boundary, cells)
+        self._geometry = (np.float32(l), np.float32(boundary), int(cells))
 
     def coordinates(self, x, y, z) -> None:
         """Assign every point to its host cell and ghost cells on the
@@ -61,17 +65,17 @@ class DeviceBoundaryWriter:
         flag column's host encode and writes; its counts are the ``halos``,
         the ``rows`` written (ghosts included) and the ``cells``.  The
         table's rows and offsets stay on the device for the gathers."""
-        wr, w = self.wr, self.wr.w
+        cells = self._geometry[2]
         with profiling.span("boundary.cells") as sp:
             pos = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
                 self.enc.device) for a in (x, y, z)]
-            table = cells_op.build(*pos, w.l, w.boundary, w.cells)
+            table = cells_op.build(*pos, *self._geometry)
             perm = table.perm.cpu().numpy()
             splits = table.host_offsets[1:-1]
-            wr.cell_index = np.split(perm, splits)
-            wr._boundary_column(np.split(table.flags.cpu().numpy(), splits))
+            self.wr.set_cells(np.split(perm, splits),
+                              np.split(table.flags.cpu().numpy(), splits))
             sp.counts.update(halos=len(pos[0]), rows=len(perm),
-                             cells=w.cells ** 3)
+                             cells=cells ** 3)
         self._table, self._halos, self._index = table, len(pos[0]), None
 
     # -- batched column write ----------------------------------------------
@@ -103,25 +107,11 @@ class DeviceBoundaryWriter:
         """Write one data column, all cells encoded in one batched device
         call (ref go/minh/boundary.go:184-225); the groups' writes are one
         span, ``container.write``."""
-        wr = self.wr
-        if wr.cell_index is None:
+        if self._table is None:
             raise RuntimeError("call coordinates() before column()")
-        if col.type in (minh_mod.Int64, minh_mod.Float32):
-            # raw fixed groups: no encoding, host write is already optimal
-            wr.column(name, col, x)
-            return
-        wr.cols.append(col)
-        wr.names.append(name)
-        f = wr.w.f
-
         if col.type == minh_mod.Int:
             xb, lens = self._cell_batch(x, np.int64)
             enc = self.enc.encode_int_blocks(xb, lens=lens)
-            with profiling.span("container.write"):
-                for r, n in enumerate(lens):
-                    f.int_group(int(n))
-                    f.data_encoded(enc.payloads[r], int(enc.mins[r]),
-                                   int(enc.bits[r]))
         elif col.type == minh_mod.Float:
             buf = minh_mod.process_float_column(
                 np.asarray(x, np.float32), col)
@@ -129,14 +119,12 @@ class DeviceBoundaryWriter:
             pixels = spec.float_group_pixels(col.low, col.high, col.dx)
             enc = self.enc.encode_float_blocks(
                 xb, col.low, col.high, pixels, lens=lens)
-            with profiling.span("container.write"):
-                for r, n in enumerate(lens):
-                    f.float_group(int(n), (col.low, col.high), col.dx)
-                    f.data_encoded(enc.payloads[r], int(enc.mins[r]),
-                                   int(enc.bits[r]))
         else:
-            raise ValueError("Can't write column with type flag %d"
-                             % col.type)
+            # raw fixed groups: no encoding, host write is already optimal
+            # (the host writer also refuses any other type)
+            self.wr.column(name, col, x)
+            return
+        self.wr.encoded_column(name, col, enc)
 
     def close(self) -> None:
         self.wr.close()

@@ -36,6 +36,7 @@ from ..core import types as ctypes_
 from ..core.writer import Writer as MinnowWriter
 from ..core.reader import Reader as MinnowReader
 from ..core import gomath
+from ..utils import profiling
 
 MAGIC = 0xBAFF1ED
 VERSION = 0
@@ -110,21 +111,17 @@ def columns_to_bytes(cols) -> bytes:
     return arr.tobytes()
 
 
-def process_float_column(x, col: Column, xp=np) -> np.ndarray:
+def process_float_column(x, col: Column) -> np.ndarray:
     """log10 + clamp preprocessing before quantization
     (ref go/minh/minh.go:141-149).  Returns float32."""
-    buf = xp.asarray(x, xp.float32)
-    owned = False  # may we clamp in place? (never mutate caller data)
-    if col.log != 0:
-        if xp is np:
-            from .. import native
+    buf = np.asarray(x, np.float32)
+    owned = col.log != 0  # may we clamp in place? (never mutate caller data)
+    if owned:
+        from .. import native
 
-            nat = native.log10_f32(buf)
-            buf = nat if nat is not None else gomath.log10(
-                buf.astype(np.float64), np).astype(np.float32)
-        else:
-            buf = gomath.log10(buf.astype(xp.float64), xp).astype(xp.float32)
-        owned = xp is np
+        nat = native.log10_f32(buf)
+        buf = nat if nat is not None else gomath.log10(
+            buf.astype(np.float64)).astype(np.float32)
     low = np.float32(col.low)
     high_clamp = np.float32(np.nextafter(np.float32(col.high),
                                          np.float32(-np.inf)))
@@ -136,16 +133,20 @@ def process_float_column(x, col: Column, xp=np) -> np.ndarray:
         np.maximum(buf, low, out=buf)
         np.minimum(buf, high_clamp, out=buf)
         return buf
-    buf = xp.where(buf < low, low, buf)
-    buf = xp.where(buf >= np.float32(col.high), high_clamp, buf)
+    buf = np.where(buf < low, low, buf)
+    buf = np.where(buf >= np.float32(col.high), high_clamp, buf)
     return buf
 
 
 class Writer:
-    """Basic minh writer (ref go/minh/minh.go:40-156)."""
+    """Basic minh writer (ref go/minh/minh.go:40-156).
+
+    With ``encoder`` (a parallel.BlockEncoder), all Float columns of a
+    row-block are quantized and packed in one batched device call, and
+    all Int columns in another; bytes are identical to the host path."""
 
     def __init__(self, fname, file_type: int = BASIC_FILE_TYPE,
-                 encode_workers: int = 0):
+                 encode_workers: int = 0, encoder=None):
         self.f = MinnowWriter(fname)
         self.f.header(struct.pack("<qqq", MAGIC, VERSION, file_type))
         # column-encode pool size; 0 -> min(4, cores).  Callers running
@@ -153,6 +154,7 @@ class Writer:
         # per-job thread share: 4 jobs x 4-thread pools thrashed a
         # 4-core host at 547 MB/s where 4 x 1 ran 615 (round-5 sweep)
         self._encode_workers = int(encode_workers)
+        self.encoder = encoder
         self.cols: list[Column] = []
         self.names: list[str] = []
         self.blocks = 0
@@ -188,15 +190,46 @@ class Writer:
             if len(np.asarray(c)) != n:
                 raise ValueError("len(cols[%d]) = %d instead of %d"
                                  % (i, len(np.asarray(c)), n))
-        self.block_sizes.append(n)
-        self.blocks += 1
+        if self.encoder is not None:
+            encoded = self._encode_batched(cols)
+        else:
+            encoded = self._encode_host(cols, n)
+        self.encoded_block(n, [encoded.get(i, x) for i, x in enumerate(cols)])
 
-        # Encode Int/Float columns on worker threads -- the native
-        # encode/log10 kernels and numpy release the GIL, so columns
-        # genuinely parallelize on the host cores -- then write the
-        # payloads in column order (byte-identical to the sequential
-        # loop: the same per-column encode the groups' write_data runs,
-        # just hoisted).  Ref sequential loop: go/minh/minh.go:99-139.
+    def _encode_batched(self, cols) -> dict:
+        """``(payload, min, bits)`` of every Int and Float column by
+        column index: all Float columns in one ``encode_float_blocks``
+        call (their per-column quantization configs broadcast with the
+        batch), all Int columns in one ``encode_int_blocks`` call -- the
+        multi-column analog of the reference's per-column loop."""
+        from ..core import spec as _spec
+
+        encoded = {}
+        float_ids = [i for i, c in enumerate(self.cols) if c.type == Float]
+        int_ids = [i for i, c in enumerate(self.cols) if c.type == Int]
+        if float_ids:
+            fcols = [self.cols[i] for i in float_ids]
+            x = np.stack([process_float_column(cols[i], self.cols[i])
+                          for i in float_ids])
+            low = np.array([c.low for c in fcols], np.float32)
+            high = np.array([c.high for c in fcols], np.float32)
+            pixels = np.array([_spec.float_group_pixels(c.low, c.high, c.dx)
+                               for c in fcols], np.int64)
+            enc = self.encoder.encode_float_blocks(x, low, high, pixels)
+            encoded.update((i, enc.block(r)) for r, i in enumerate(float_ids))
+        if int_ids:
+            x = np.stack([np.asarray(cols[i], np.int64) for i in int_ids])
+            enc = self.encoder.encode_int_blocks(x)
+            encoded.update((i, enc.block(r)) for r, i in enumerate(int_ids))
+        return encoded
+
+    def _encode_host(self, cols, n: int) -> dict:
+        """``(payload, min, bits)`` of every Int and Float column by
+        column index, by the host codec on worker threads -- the native
+        encode/log10 kernels and numpy release the GIL, so columns
+        genuinely parallelize on the host cores -- byte-identical to the
+        sequential loop: the same per-column encode the groups' write_data
+        runs, just hoisted."""
         from ..core import groups as _groups, spec as _spec
 
         def encode_col(i, x):
@@ -214,7 +247,6 @@ class Writer:
 
         enc_ids = [i for i, c in enumerate(self.cols)
                    if c.type in (Int, Float)]
-        encoded = {}
         if len(enc_ids) > 1 and n:
             if self._pool is None:
                 from concurrent.futures import ThreadPoolExecutor
@@ -225,24 +257,34 @@ class Writer:
                     or min(4, _os.cpu_count() or 1))
             futs = {i: self._pool.submit(encode_col, i, cols[i])
                     for i in enc_ids}
-            encoded = {i: f.result() for i, f in futs.items()}
-        elif enc_ids:
-            encoded = {i: encode_col(i, cols[i]) for i in enc_ids}
+            return {i: f.result() for i, f in futs.items()}
+        return {i: encode_col(i, cols[i]) for i in enc_ids}
 
-        for i, x in enumerate(cols):
-            col = self.cols[i]
-            if ctypes_.is_fixed(col.type):
-                self.f.fixed_size_group(col.type, n)
-                self.f.data(np.asarray(
-                    x, ctypes_.group_dtype(col.type)))
-            elif col.type == Int:
-                self.f.int_group(n)
-                self.f.data_encoded(*encoded[i])
-            elif col.type == Float:
-                self.f.float_group(n, (col.low, col.high), col.dx)
-                self.f.data_encoded(*encoded[i])
-            else:
-                raise ValueError("bad column type %d" % col.type)
+    def encoded_block(self, n: int, cols) -> None:
+        """Write one row-block of ``n`` rows whose Int and Float columns
+        are already encoded: ``cols[i]`` is a fixed-width column's values
+        or a coded column's ``(payload, min, bits)``, as
+        ``EncodedBlocks.block`` gives it (ref go/minh/minh.go:99-139).
+        The groups' writes are one span, ``container.write``."""
+        if len(cols) != len(self.cols):
+            raise ValueError("Expected %d columns, got %d."
+                             % (len(self.cols), len(cols)))
+        self.block_sizes.append(n)
+        self.blocks += 1
+        with profiling.span("container.write"):
+            for col, x in zip(self.cols, cols):
+                if ctypes_.is_fixed(col.type):
+                    self.f.fixed_size_group(col.type, n)
+                    self.f.data(np.asarray(
+                        x, ctypes_.group_dtype(col.type)))
+                elif col.type == Int:
+                    self.f.int_group(n)
+                    self.f.data_encoded(*x)
+                elif col.type == Float:
+                    self.f.float_group(n, (col.low, col.high), col.dx)
+                    self.f.data_encoded(*x)
+                else:
+                    raise ValueError("bad column type %d" % col.type)
 
     def close(self) -> None:
         if self._pool is not None:
@@ -260,8 +302,8 @@ class Writer:
         self.close()
 
 
-def create(fname, encode_workers: int = 0) -> Writer:
-    return Writer(fname, encode_workers=encode_workers)
+def create(fname, encode_workers: int = 0, encoder=None) -> Writer:
+    return Writer(fname, encode_workers=encode_workers, encoder=encoder)
 
 
 class Reader:

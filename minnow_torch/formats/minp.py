@@ -110,12 +110,12 @@ def _sub_cell_side(length: int, sub_cells: int) -> int:
     return n
 
 
-def split_sub_cells(vec, sub_cells: int, xp=np):
+def split_sub_cells(vec, sub_cells: int):
     """(nFile**3, 3) row-major vectors -> (subCells**3, nSub**3, 3) sub-cell
     blocks, matching the reference's getSubCell element order
     (ref go/minp/minp.go:246-264).  Pure reshape/transpose -- one
     strided copy, not 2*nFile**3 scalar loop iterations."""
-    vec = xp.asarray(vec)
+    vec = np.asarray(vec)
     s = sub_cells
     n = _sub_cell_side(len(vec), s)
     g = vec.reshape(s, n, s, n, s, n, 3)  # (sz, jz, sy, jy, sx, jx, k)
@@ -134,10 +134,10 @@ def split_axes(vec, sub_cells: int):
     return g.contiguous().view(3, s * s * s, n * n * n)
 
 
-def join_sub_cells(blocks, sub_cells: int, xp=np):
+def join_sub_cells(blocks, sub_cells: int):
     """Inverse of :func:`split_sub_cells`
     (ref go/minp/minp.go:270-288, setSubCell)."""
-    blocks = xp.asarray(blocks)
+    blocks = np.asarray(blocks)
     s = sub_cells
     n3 = blocks.shape[1]
     n = round(n3 ** (1 / 3))
@@ -148,15 +148,15 @@ def join_sub_cells(blocks, sub_cells: int, xp=np):
     return g.reshape(s * s * s * n3, 3)
 
 
-def lagrangian_ids(cell: Cell, n_side: int, xp=np):
+def lagrangian_ids(cell: Cell, n_side: int):
     """Lagrangian particle IDs of a file-cell, arithmetic reconstruction
     (ref go/minp/minp.go:210-230)."""
     n_file = cell.n_file(n_side)
     fx, fy, fz = cell.file_coord()
-    jz, jy, jx = xp.meshgrid(
-        xp.arange(n_file, dtype=xp.int64),
-        xp.arange(n_file, dtype=xp.int64),
-        xp.arange(n_file, dtype=xp.int64), indexing="ij")
+    jz, jy, jx = np.meshgrid(
+        np.arange(n_file, dtype=np.int64),
+        np.arange(n_file, dtype=np.int64),
+        np.arange(n_file, dtype=np.int64), indexing="ij")
     ix = jx + fx * n_file
     iy = jy + fy * n_file
     iz = jz + fz * n_file

@@ -79,11 +79,21 @@ class EncodedBlocks:
     def total_bytes(self) -> int:
         return int(self.sizes.sum())
 
+    def block(self, r: int) -> tuple:
+        """Block ``r`` as ``(payload, min, bits)``: the arguments of a core
+        Writer's ``data_encoded``."""
+        return self.payloads[r], int(self.mins[r]), int(self.bits[r])
+
     @profiling.traced("container.write")
-    def write_to(self, writer) -> None:
-        """Append all blocks to the current group of a core Writer through
-        its pre-encoded path (``Writer.data_encoded``)."""
-        for payload, mn, bits in zip(self.payloads, self.mins, self.bits):
+    def write_to(self, writer, start_group=None) -> None:
+        """Append the blocks to a core Writer through its pre-encoded path
+        (``Writer.data_encoded``): all into its current group or, with
+        ``start_group``, each into a group of its own, which
+        ``start_group(r)`` opens before block ``r`` is written."""
+        for r, (payload, mn, bits) in enumerate(zip(self.payloads, self.mins,
+                                                    self.bits)):
+            if start_group is not None:
+                start_group(r)
             writer.data_encoded(payload, int(mn), int(bits))
 
 

@@ -30,7 +30,6 @@ import numpy as np
 
 from minnow_torch.core import spec
 from minnow_torch.formats import boundary, minh, minp
-from minnow_torch.formats.boundary_device import DeviceBoundaryWriter
 from minnow_torch.formats.device_common import read_payloads
 from minnow_torch.parallel.distributed import gather_blocks
 from minnow_torch.parallel.pipeline import BlockEncoder
@@ -108,7 +107,7 @@ def dryrun_pallas_shard(devices):
 def dryrun_production_writer(devices) -> bytes:
     """The whole production writer path over the devices: ragged
     row-blocks -> ``BlockEncoder`` (several widths) -> ``gather_blocks``
-    (one process) -> ``EncodedBlocks.write_to`` -> a minh file,
+    (one process) -> ``minh.Writer.encoded_block`` -> a minh file,
     byte-compared with a single-process host write (the writer-order
     contract, ref go/block_index.go:16-23).  Returns the file's bytes."""
     names = ["id", "x", "mvir"]
@@ -155,19 +154,9 @@ def dryrun_production_writer(devices) -> bytes:
         w = minh.create(dev_file)
         w.header(names, "dryrun production writer", cols)
         w.geometry(_HIGH, 0, 0)
-        fi = 0
         for g, m in enumerate(sizes):
-            w.block_sizes.append(m)
-            w.blocks += 1
-            w.f.int_group(m)
-            w.f.data_encoded(enc_i.payloads[g], int(enc_i.mins[g]),
-                             int(enc_i.bits[g]))
-            for c in fcols:
-                col = cols[c]
-                w.f.float_group(m, (col.low, col.high), col.dx)
-                w.f.data_encoded(enc_f.payloads[fi], int(enc_f.mins[fi]),
-                                 int(enc_f.bits[fi]))
-                fi += 1
+            w.encoded_block(m, [enc_i.block(g)] + [
+                enc_f.block(g * len(fcols) + k) for k in range(len(fcols))])
         w.close()
 
         host_file = os.path.join(td, "host.minh")
@@ -282,9 +271,7 @@ def dryrun_boundary_mesh(devices) -> bytes:
     ids = rng.integers(0, 10 ** 12, n).astype(np.int64)
 
     def write(fname, enc):
-        w = boundary.create_boundary(fname)
-        if enc is not None:
-            w = DeviceBoundaryWriter(w, encoder=enc)
+        w = boundary.create_boundary(fname, encoder=enc)
         w.header("boundary mesh dryrun")
         w.geometry(l, bnd, cells)
         w.coordinates(x, y, z)

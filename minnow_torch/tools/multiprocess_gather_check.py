@@ -232,20 +232,11 @@ def worker(rank: int, num: int, port: int, out_file: str, mode: str,
         w = minh.create(mp_file)
         w.header(names, TEXT, cols)
         w.geometry(L, 0, 0)
-        fi = 0
         for g, n in enumerate(sizes):
-            w.block_sizes.append(n)
-            w.blocks += 1
             # column order: id (Int), x (Float), mvir (Float)
-            w.f.int_group(n)
-            w.f.data_encoded(enc_i.payloads[g], int(enc_i.mins[g]),
-                             int(enc_i.bits[g]))
-            for c in FLOAT_COLS:
-                col = cols[c]
-                w.f.float_group(n, (col.low, col.high), col.dx)
-                w.f.data_encoded(enc_f.payloads[fi], int(enc_f.mins[fi]),
-                                 int(enc_f.bits[fi]))
-                fi += 1
+            w.encoded_block(n, [enc_i.block(g)] + [
+                enc_f.block(g * len(FLOAT_COLS) + k)
+                for k in range(len(FLOAT_COLS))])
         w.close()
     t["write"] = clock() - t0
 

@@ -11,10 +11,8 @@ import pytest
 
 import test_goldens
 from minnow_torch import core
-from minnow_torch.cli.text_to_minh import _DeviceMinhWriter
 from minnow_torch.core import types as core_types
 from minnow_torch.formats import boundary, minh, minp
-from minnow_torch.formats.boundary_device import DeviceBoundaryWriter
 from minnow_torch.parallel.pipeline import BlockEncoder
 
 # what test_goldens.py calls ``minnow``: the port's container API
@@ -28,17 +26,13 @@ def _with(module, **changed):
 
 
 def _device_modules(devices):
-    """The format modules with their writers on the device route:
-    ``minh.create`` through ``text_to_minh``'s device writer,
-    ``boundary.create_boundary`` through ``DeviceBoundaryWriter``,
-    ``minp.create`` with an encoder."""
+    """The format modules with their writers on the device route: each
+    format's ``create`` given an encoder."""
     enc = BlockEncoder(devices)
     return {
-        "minh": _with(minh, create=lambda f: _DeviceMinhWriter(
-            minh.create(f), enc)),
+        "minh": _with(minh, create=lambda f: minh.create(f, encoder=enc)),
         "boundary": _with(boundary, create_boundary=lambda f:
-                          DeviceBoundaryWriter(boundary.create_boundary(f),
-                                               encoder=enc)),
+                          boundary.create_boundary(f, encoder=enc)),
         "minp": _with(minp, create=lambda f: minp.create(f, encoder=enc)),
     }
 
