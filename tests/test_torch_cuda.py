@@ -12,6 +12,7 @@ them), each with a time limit.
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ from minnow_torch.ops import selfcheck, validate
 from minnow_torch.parallel.pipeline import BlockEncoder
 from minnow_torch.tools import (dryrun, kernel_fuzz_soak,
                                 multiprocess_gather_check)
+from minnow_torch.utils import profiling
 from test_torch_cells import halos
 from test_torch_minh_to_bnd import BND, CELLS, write_catalog
 
@@ -692,6 +694,34 @@ def test_reads_launch_once_a_column_on_card(dev, tmp_path, mode):
         assert got.tobytes() == r.vectors().tobytes()
     finally:
         r.close()
+
+
+def test_reads_on_card_reuse_one_pinned_buffer(dev, tmp_path):
+    """``x_0`` then ``v_0`` of a 256^3-particle cell read on the card with
+    no synchronise between the calls, so that the second call stages
+    into the buffer the first one's copy leaves from: both bitwise the
+    host reader's; both copies leave from pinned memory, and the second
+    call allocates no staging buffer."""
+    gadget, out = str(tmp_path / "gadget"), str(tmp_path / "out")
+    for d in (gadget, out):
+        os.makedirs(d)
+    chip_smoke.write_snapshot(gadget, SNAP_SIDE, SNAP_L, SNAP_FILES)
+    convert_snapshot.to_minp(gadget, out, 1, 8, 0.001, 1.0, dev)
+    readers = [minp.open(os.path.join(out, name), dither="uniform", seed=5)
+               for name in ("x_0.minp", "v_0.minp")]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [minp_device.read_vectors(r, dev) for r in readers]
+        stages = [s.counts for s in profiling.records(t0)[0]
+                  if s.name == "read.stage"]
+        for r, g in zip(readers, got):
+            assert g.cpu().numpy().tobytes() == r.vectors().tobytes()
+    finally:
+        for r in readers:
+            r.close()
+    assert [c["pinned"] for c in stages] == [1, 1]
+    assert stages[1]["staging_allocs"] == 0
 
 
 @pytest.mark.parametrize("mode", list(codec.DITHER_MODES))

@@ -276,6 +276,7 @@ def test_to_minp_and_read_vectors_open_their_spans(tmp_path):
     assert all(s.counts == {"device": 1} for s in spans
                if s.name == "grid.scatter")
 
+    allocs = []
     for name in ("x_0.minp", "v_0.minp"):
         with minp.open(str(out / name)) as r:
             t1 = time.perf_counter()
@@ -293,4 +294,14 @@ def test_to_minp_and_read_vectors_open_their_spans(tmp_path):
         # the staged words hold the span read and the tables
         assert 0 < by["read.span"].nbytes < by["read.copy"].nbytes
         assert by["read.stage"].end <= by["read.copy"].start
+        # the tables are staged first, then the span is read in after them
+        assert by["read.stage"].end <= by["read.span"].start
         assert by["read.copy"].parent == by["read.columns"].id
+        # the staged words and tables in the reused staging buffer: the
+        # copy is its used prefix, pageable on the CPU
+        assert by["read.stage"].counts.keys() == {"staging_allocs",
+                                                  "pinned"}
+        assert by["read.stage"].counts["pinned"] == 0
+        allocs.append(by["read.stage"].counts["staging_allocs"])
+    # x_0's read left a buffer that v_0's span and tables fit
+    assert allocs[0] in (0, 1) and allocs[1] == 0

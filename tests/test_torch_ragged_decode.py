@@ -149,7 +149,8 @@ class _Spy:
 
 
 class _Reads:
-    """Wraps a reader's file and counts its ``read`` calls."""
+    """Wraps a reader's file and counts its ``read`` and ``readinto``
+    calls."""
 
     def __init__(self, f):
         self.f, self.reads = f, 0
@@ -157,6 +158,10 @@ class _Reads:
     def read(self, *a):
         self.reads += 1
         return self.f.read(*a)
+
+    def readinto(self, *a):
+        self.reads += 1
+        return self.f.readinto(*a)
 
     def __getattr__(self, name):
         return getattr(self.f, name)
